@@ -1,7 +1,7 @@
-"""pycricodecs_tpu: a TPU-native batched CRIWARE codec framework.
+"""pycricodecs_tpu: a batched CRIWARE codec framework on JAX.
 
 A from-scratch rebuild of the capabilities of Youjose/PyCriCodecs with a
-JAX/XLA compute path (batched ADX/HCA transcode on TPU) and a C++ host core
+JAX/XLA compute path (batched ADX/HCA/AHX transcode on a GPU) and a C++ host core
 for bitstream work. The public API mirrors the reference package:
 
     ADX, HCA, CPK, CPKBuilder, USM, USMBuilder, UTF, UTFBuilder,

@@ -59,8 +59,7 @@ def decode_mp2(data: bytes, offset: int = 0, device: bool = False,
 
     device=False (default) uses the vectorised float64 numpy path — the right
     engine for single files (the jit specialises on the frame count, so a
-    remote-TPU compile would dominate; same lesson as the ADX bank scan, see
-    CLAUDE.md).  device=True runs dequant + the one-matmul synthesis jitted
+    compile would dominate).  device=True runs dequant + the one-matmul synthesis jitted
     on the accelerator (float32, for batch work); failures then propagate.
     """
     st = mp2_frame.unpack(data, offset, max_frames)
@@ -112,8 +111,8 @@ def encode_mp2(pcm: np.ndarray, sample_rate: int,
     padding-slot accumulator; greedy max-(SMR - SNR) bit allocation.
 
     device=False (default) is the float64 numpy reference path.  device=True
-    runs the FULL on-device pipeline (ops/mp2_encode_device: analysis MXU
-    matmul through on-chip bit packing) — an f32 variant whose allocation
+    runs the FULL on-device pipeline (ops/mp2_encode_device: analysis
+    matmul through device bit packing) — an f32 variant whose allocation
     ranking is exactly order-equivalent to this function's dB formulation
     and whose post-analysis stages are bit-deterministic across backends;
     output bytes differ from the f64 path only through analysis rounding.

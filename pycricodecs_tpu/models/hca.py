@@ -4,8 +4,8 @@ Drop-in surface for PyCriCodecs.HCA (reference hca.py:20-308): accepts HCA or
 WAV input (path or bytes), hex-string keys, subkeys; exposes decode(),
 encode(), encrypt(), decrypt(), info(), get_frames(), get_header(), get_hca().
 
-Decode architecture (tpu-first): host bitstream unpack (ops/hca_frame.py)
-emits dense SoA tensors; the device transform (ops/hca_kernels.py) runs
+Decode architecture: host bitstream unpack (ops/hca_frame.py, C++ core)
+emits dense SoA tensors; the transform (C++ or ops/hca_kernels.py) runs
 dequantise -> noise -> HFR -> intensity stereo -> IMDCT -> overlap-add for all
 frames in parallel. Output parity target: bit-exact WAV vs HcaDecode
 (hca.cpp:3340-3457).

@@ -1,34 +1,71 @@
 """Native host core loader.
 
-Compiles native/cricore.cpp to libcricore.so on first use (g++, -O3) and
-exposes it through ctypes. All entry points have pure-Python fallbacks in the
-rest of the package; `load()` returns None when no toolchain is available.
+Compiles native/cricore.cpp on first use (g++, -O3 -march=native) and exposes
+it through ctypes. The built file is named by a hash of the source, the
+compiler flags and the host's CPU features, so a library built on one machine
+is never loaded on another whose CPU lacks its instructions. All entry points
+have pure-Python fallbacks in the rest of the package; `load()` returns None
+when no toolchain is available.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "cricore.cpp")
-_SO = os.path.join(_HERE, "libcricore.so")
+_BUILD_DIR = os.path.join(_HERE, "build")
+# -ffp-contract=off: the HCA decode transform must round every fp32 mul/add
+# separately to stay bit-exact with the XLA kernel (FMA contraction perturbs
+# ~0.1% of samples by 1 LSB)
+_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
+          "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def _cpu_features() -> str:
     try:
-        # -ffp-contract=off: the HCA decode transform must round every fp32
-        # mul/add separately to stay bit-exact with the XLA kernel (FMA
-        # contraction perturbs ~0.1% of samples by 1 LSB)
-        cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-fPIC",
-               "-shared", "-std=c++17", _SRC, "-o", _SO, "-lpthread"]
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return " ".join(sorted(line.split(":", 1)[1].split()))
+    except OSError:
+        pass
+    return ""
+
+
+def _so_path() -> str:
+    """Build path keyed by source, flags, machine and CPU features."""
+    with open(_SRC, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + "|".join(
+        _FLAGS + [platform.machine(), _cpu_features()]).encode())
+    return os.path.join(_BUILD_DIR,
+                        f"libcricore-{key.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> bool:
+    try:
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build to a private name, then rename: concurrent builders (test
+        # workers) never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = ["g++", *_FLAGS, _SRC, "-o", tmp, "-lpthread"]
         res = subprocess.run(cmd, capture_output=True, timeout=300)
-        return res.returncode == 0 and os.path.exists(_SO)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            return False
+        os.replace(tmp, so)
+        return True
     except Exception:
         return False
 
@@ -40,13 +77,14 @@ def load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_SRC) > os.path.getmtime(_SO)):
-            if not _build():
-                return None
         try:
-            lib = ctypes.CDLL(_SO)
+            so = _so_path()
+        except OSError:
+            return None
+        if not os.path.exists(so) and not _build(so):
+            return None
+        try:
+            lib = ctypes.CDLL(so)
         except OSError:
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -2,7 +2,7 @@
 //
 // Plain-C ABI (loaded via ctypes): CRILAYLA compress/decompress and the
 // batched HCA frame unpacker (the serial bitstream half of HCA decode, which
-// feeds dense SoA tensors to the JAX/TPU transform). Behaviour parity targets:
+// feeds dense SoA tensors to the JAX transform). Behaviour parity targets:
 // crilayla.cpp:48-197 and clHCA_DecodeBlock_unpack (hca.cpp:1149-1205).
 //
 // Build: g++ -O3 -march=native -fPIC -shared cricore.cpp -o libcricore.so
@@ -840,9 +840,9 @@ void cri_hca_pack_frames(
 // ---------------------------------------------------------------------------
 // ADX block-ADPCM serial recurrences
 //
-// Host fast path for single files / small batches where the TPU lax.scan's
-// dispatch latency dominates (the batched TPU path in ops/adx_kernels.py is
-// preferred for banks). Bit-exact mirrors of adx_decode_numpy /
+// Host fast path for single files / small batches where device dispatch
+// latency dominates (the batched device path in ops/adx_kernels.py serves
+// banks). Bit-exact mirrors of adx_decode_numpy /
 // adx_encode_numpy in ops/adx_kernels.py (themselves parity-verified against
 // the reference decoder adx.cpp:189-213 and encoder adx.cpp:215-273). All
 // arithmetic in int64 with C truncation semantics, matching the numpy mirror.
@@ -1023,7 +1023,7 @@ void cri_adx_encode_scan(const int32_t* pcm, const int32_t* c0v,
 // Single-file fast paths equivalent to (and verified against) the composition
 // of the host demux in models/adx.py::_decode_arrays_host with the lane scans
 // above — the dense-lane variants remain the kernel layout used by the
-// batched TPU pipeline. Reference behaviour: adx.cpp:189-213 (decode),
+// batched device pipeline. Reference behaviour: adx.cpp:189-213 (decode),
 // adx.cpp:215-273 + 416-506 (encode).
 // ---------------------------------------------------------------------------
 

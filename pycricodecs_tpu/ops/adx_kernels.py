@@ -1,12 +1,12 @@
 """ADX block-ADPCM compute kernels (JAX) plus exact numpy reference paths.
 
-Design (tpu-first, see SURVEY.md §7.3): the ADPCM recurrence
+Design (see SURVEY.md §7.3): the ADPCM recurrence
 
     s_t = clamp(q_t * scale_t + (c0 * s_{t-1} >> 12) + (c1 * s_{t-2} >> 12))
 
 is non-associative (the clamp binds), so time stays a `lax.scan`; throughput
-comes from batching thousands of [stream x channel] lanes per scan step on the
-VPU. All arithmetic is int32 with C semantics (arithmetic right shift,
+comes from batching thousands of [stream x channel] lanes per scan step. All
+arithmetic is int32 with C semantics (arithmetic right shift,
 truncating division), making decode bit-exact against the reference decoder
 (adx.cpp:189-213) and encode bit-exact against adx.cpp:215-273.
 
@@ -14,7 +14,6 @@ Shapes: lanes axis L = streams*channels, time axis N = blocks*samples_per_block.
 """
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -69,7 +68,7 @@ def adx_decode_scan_blocked(codes, scales, c0, c1, h1, h2, *, spb):
 
     Numerically identical to adx_decode_scan (same per-sample op order), but
     the scan length drops from blocks*spb to blocks — a 10s stream is ~460
-    steps instead of ~15k, which is what a TPU scan wants. Inputs are the
+    steps instead of ~15k (fewer, fatter device loop steps). Inputs are the
     same per-sample [L, N] lane arrays (scales/coefficients constant within
     a block); returns int16 [L, N].
     """
@@ -191,87 +190,6 @@ def adx_decode_fixpoint_blocks(q, s, a0, a1, h1, h2, *, max_passes=None):
     return (out.astype(jnp.int16), ~changed)
 
 
-def adx_decode_serial_pallas(q, s, a0, a1, h1, h2, *, interpret=False,
-                             chunk_blocks=None):
-    """EXACT serial ADX decode as a VMEM-resident Pallas kernel — the
-    decode twin of adx_encode_serial_pallas.
-
-    The chained-block decode fixpoint converges in a handful of passes on
-    benign content but ~36 on tonal streams (truncation-floor frontier),
-    each pass dragging [L, nb, spb] intermediates through HBM; the serial
-    recurrence is only ~7 dependent VPU ops per sample with every operand
-    in VMEM, so it is faster than ANY pass count and has no convergence
-    flag to route on.  Same per-sample op order as adx_decode_scan.
-
-    q int32 [L, B, spb]; s/a0/a1 int32 [L, B] (mode 2 varies coefficients
-    per block); h1/h2 int32 [L].  Returns (pcm int16 [L, B, spb],
-    converged=True).
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    L, B, spb = q.shape
-    i32 = jnp.int32
-    Gc, LN, Lp, NG, Bp = _serial_dims(L, B, spb, chunk_blocks)
-
-    q_k = _serial_lay(q.astype(i32), L, B, Lp, LN, NG, Gc, (spb,))
-    sab_k = _serial_lay(
-        jnp.stack([s.astype(i32), a0.astype(i32), a1.astype(i32)], axis=2),
-        L, B, Lp, LN, NG, Gc, (3,))
-    hist = jnp.pad(jnp.stack([h1.astype(i32), h2.astype(i32)], axis=1),
-                   ((0, Lp - L), (0, 0)))
-    hist_k = hist.reshape(LN, 8, 128, 2).transpose(0, 3, 1, 2)
-
-    def kernel(q_ref, sab_ref, hist_ref, out_ref, state_s):
-        g = pl.program_id(1)
-
-        @pl.when(g == 0)
-        def _():
-            state_s[0] = hist_ref[0, 0]
-            state_s[1] = hist_ref[0, 1]
-
-        def block_body(b, carry):
-            p1, p2 = carry
-            blk = q_ref[0, 0, b]                      # [spb, 8, 128]
-            sb = sab_ref[0, 0, b, 0]
-            a0b = sab_ref[0, 0, b, 1]
-            a1b = sab_ref[0, 0, b, 2]
-            for t in range(spb):
-                sample = blk[t] * sb + ((a0b * p1) >> 12) \
-                    + ((a1b * p2) >> 12)
-                sample = _clamp16(sample)
-                p2 = p1
-                p1 = sample
-                out_ref[0, 0, b, t] = sample
-            return p1, p2
-
-        p1, p2 = jax.lax.fori_loop(0, Gc, block_body,
-                                   (state_s[0], state_s[1]))
-        state_s[0] = p1
-        state_s[1] = p2
-
-    mem = dict(memory_space=pltpu.VMEM)
-    out_k = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((LN, NG, Gc, spb, 8, 128), i32),
-        grid=(LN, NG),
-        in_specs=[
-            pl.BlockSpec((1, 1, Gc, spb, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, Gc, 3, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 2, 8, 128), lambda ln, g: (ln, 0, 0, 0),
-                         **mem),
-        ],
-        out_specs=pl.BlockSpec((1, 1, Gc, spb, 8, 128),
-                               lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-        scratch_shapes=[pltpu.VMEM((2, 8, 128), i32)],
-        interpret=interpret,
-    )(q_k, sab_k, hist_k)
-    pcm = _serial_unlay(out_k, L, B, Lp, Bp, (spb,))
-    return pcm.astype(jnp.int16), jnp.bool_(True)
-
-
 # ---------------------------------------------------------------------------
 # On-device block unpack + fused raw-bytes -> PCM pipeline
 # ---------------------------------------------------------------------------
@@ -345,72 +263,33 @@ def adx_unpack_device(payload, *, block_size, bit_depth, encoding_mode,
     return q, s, a0, a1
 
 
-def _resolve_serial_engine(engine, spb):
-    """Resolve engine="auto" OUTSIDE jit (env/backend state must not be
-    read at trace time: the first trace per shape would permanently win
-    the jit cache — code-review finding, round 5) and gate the serial
-    kernels' VMEM budget: pcm+codes blocks are Gc*spb*4KB each and Mosaic
-    double-buffers both, so chunks past ~1024 samples blow the 16MB
-    scoped-vmem limit (spb can reach 1012 at bit_depth 2 / block_size
-    0xFF, where even Gc=1 is marginal — those take the XLA fixpoint)."""
-    if engine != "auto":
-        return engine
-    if spb < 2 or max(1, 512 // spb) * spb > 768:
-        return "fixpoint"
-    if jax.devices()[0].platform == "tpu":
-        return "serial"
-    if os.environ.get("PYCRICODECS_PALLAS_INTERPRET") == "1":
-        return "interpret"
-    return "fixpoint"
-
-
 @partial(jax.jit, static_argnames=("block_size", "bit_depth",
                                    "encoding_mode", "coef",
-                                   "static_coefficients", "max_passes",
-                                   "engine"))
-def _adx_decode_device_pipeline_jit(payload, h1, h2, *, block_size,
-                                    bit_depth, encoding_mode, coef,
-                                    static_coefficients, max_passes,
-                                    engine):
+                                   "static_coefficients", "max_passes"))
+def adx_decode_device_pipeline(payload, h1, h2, *, block_size, bit_depth,
+                               encoding_mode, coef,
+                               static_coefficients=None, max_passes=None):
+    """Full on-device ADX decode: raw block bytes -> PCM16, both in device
+    memory.
+
+    payload uint8 [L, nb, block_size], h1/h2 int32 [L].  Returns
+    (pcm int16 [L, nb, spb], converged bool).  The unpack is reshape/mask
+    work (no VLC); the ADPCM recurrence runs as the provably-exact
+    chained-block fixpoint (XLA, shardable). Reference hot loop:
+    adx.cpp:189-273."""
     q, s, a0, a1 = adx_unpack_device(
         payload, block_size=block_size, bit_depth=bit_depth,
         encoding_mode=encoding_mode, coef=coef,
         static_coefficients=static_coefficients)
-    if engine in ("serial", "interpret"):
-        return adx_decode_serial_pallas(q, s, a0, a1, h1, h2,
-                                        interpret=engine == "interpret")
     return adx_decode_fixpoint_blocks(q, s, a0, a1, h1, h2,
                                       max_passes=max_passes)
-
-
-def adx_decode_device_pipeline(payload, h1, h2, *, block_size, bit_depth,
-                               encoding_mode, coef,
-                               static_coefficients=None, max_passes=None,
-                               engine="auto"):
-    """Full on-chip ADX decode: raw block bytes in HBM -> PCM16 in HBM.
-
-    payload uint8 [L, nb, block_size], h1/h2 int32 [L].  Returns
-    (pcm int16 [L, nb, spb], converged bool).  The unpack is reshape/mask
-    work (no VLC); the ADPCM recurrence runs as the serial VMEM Pallas
-    kernel on TPU (engine="serial" — always exact, no convergence routing)
-    or the provably-exact chained-block fixpoint elsewhere / under meshes
-    (engine="fixpoint"; pallas_call has no GSPMD rule). engine="auto"
-    resolves before tracing (_resolve_serial_engine). Reference hot loop:
-    adx.cpp:189-273."""
-    spb = (block_size - 2) * 8 // bit_depth
-    return _adx_decode_device_pipeline_jit(
-        payload, h1, h2, block_size=block_size, bit_depth=bit_depth,
-        encoding_mode=encoding_mode, coef=coef,
-        static_coefficients=static_coefficients, max_passes=max_passes,
-        engine=_resolve_serial_engine(engine, spb))
 
 
 def adx_decode_host(codes, scales, c0, c1, h1, h2):
     """Host fast path: native C++ lane scan when available, numpy otherwise.
 
     Bit-exact with adx_decode_scan; preferred for single files / small
-    batches where device dispatch latency dominates (the batched TPU scan
-    wins on banks).
+    batches where device dispatch latency dominates.
     """
     import ctypes
 
@@ -694,10 +573,10 @@ def adx_encode_numpy(pcm, c0, c1, h1_init, h2_init, *, spb, encoding_mode,
 
 @partial(jax.jit, static_argnames=("spb", "encoding_mode", "bit_depth",
                                    "scale_fix", "max_passes",
-                                   "segment_blocks", "strategy"))
+                                   "segment_blocks"))
 def adx_encode_fixpoint(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
                         bit_depth, scale_fix=False, max_passes=None,
-                        segment_blocks=512, strategy="segmented"):
+                        segment_blocks=512):
     """Block-parallel EXACT ADX encode by chained-block fixpoint iteration.
 
     The encode mirror of adx_decode_fixpoint: the only cross-block coupling
@@ -728,28 +607,6 @@ def adx_encode_fixpoint(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
              zero bool [L, B], converged bool).
     """
     L, B, _ = pcm.shape
-    if strategy == "reseed" and max_passes is not None:
-        # the reseed core has its own (outer, inner) budgets; silently
-        # falling through to the segmented engine would mislabel a
-        # measurement (code-review finding, round 5)
-        raise ValueError("strategy='reseed' does not take max_passes")
-    if strategy == "reseed" and max_passes is None:
-        # MEASURED NEGATIVE RESULT (round 5, kept for the record): the
-        # decode-reseeded fixpoint advances the exact frontier at EXACTLY
-        # +1 block per outer round on tonal bd=4 content, with every
-        # downstream block's codes wrong and a 56-137-pass inner sim-decode
-        # fixpoint per round (/tmp-era script; see _adx_encode_reseed_core
-        # docstring) — strictly worse than the chained-end scheme's ~1.5
-        # blocks/pass. Do not make this the default; the quantisation
-        # feedback makes end states LSB-sensitive to starts, so information
-        # genuinely propagates ~1 block per parallel pass whatever states
-        # are reseeded from. The serial Pallas kernel
-        # (adx_encode_serial_pallas) is the engine that actually wins.
-        inner_max = 48 + (B * 64) // (96 * max(spb, 1))
-        return _adx_encode_reseed_core(
-            pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
-            bit_depth=bit_depth, scale_fix=scale_fix,
-            max_outer=24, inner_max=inner_max)
     if max_passes is None and B > segment_blocks:
         G = segment_blocks
         nseg = -(-B // G)
@@ -779,190 +636,6 @@ def adx_encode_fixpoint(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
         pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
         bit_depth=bit_depth, scale_fix=scale_fix, max_passes=max_passes)
     return out[:4]
-
-
-def _encode_pass(pcm, c0b, c1b, s1, s2, *, spb, encoding_mode, bit_depth,
-                 scale_fix):
-    """Encode ALL blocks in parallel from start states [L, B]; returns
-    (codes, scale_raw, zero, end1, end2, m) with m = the per-block sim
-    multiplier (scale_eff, or eff under scale_fix) that _sim_decode_pass
-    needs to replay the quantisation loop's simulated decoder. Same
-    per-sample op order as adx_encode_scan — exact given exact starts."""
-    limit = (1 << (bit_depth - 1)) - 1
-    prev1 = jnp.concatenate([s1[:, :, None], pcm[:, :, :-1]], axis=2)
-    if spb >= 2:
-        prev2 = jnp.concatenate(
-            [s2[:, :, None], s1[:, :, None], pcm[:, :, :-2]], axis=2)
-    else:
-        prev2 = s2[:, :, None]
-    resid = ((pcm << 12) - c0b[..., None] * prev1
-             - c1b[..., None] * prev2) >> 12
-    minimum = jnp.minimum(jnp.min(resid, axis=2), 0)
-    maximum = jnp.maximum(jnp.max(resid, axis=2), 0)
-    zero = (minimum == 0) & (maximum == 0)
-
-    scale = _scale_from_minmax(minimum, maximum, limit, scale_fix=scale_fix)
-    if encoding_mode == 4:
-        power = jnp.where(scale == 0, 0,
-                          _ilog2(jnp.maximum(scale, 1)) + 1)
-        scale_eff = (1 << power).astype(jnp.int32)
-        scale_raw = 12 - power
-    elif encoding_mode == 2:
-        scale_raw = scale & 0x1FFF
-        scale_eff = scale
-    else:
-        scale_raw = scale
-        scale_eff = scale
-    scale_eff = jnp.maximum(scale_eff, 1)
-    eff = scale_eff if encoding_mode == 4 else scale + 1
-
-    q1, q2 = s1, s2
-    outs = []
-    for t in range(spb):
-        x = pcm[:, :, t]
-        if scale_fix:
-            pred = ((c0b * q1) >> 12) + ((c1b * q2) >> 12)
-            delta = x - pred
-            delta = jnp.where(delta > 0, delta + (eff >> 1),
-                              delta - (eff >> 1))
-            delta = _tdiv(delta, eff)
-            delta = jnp.clip(delta, -limit - 1, limit)
-            sim = _clamp16(delta * eff + pred)
-        else:
-            delta = ((x << 12) - c0b * q1 - c1b * q2) >> 12
-            delta = jnp.where(delta > 0, delta + (scale_eff >> 1),
-                              delta - (scale_eff >> 1))
-            delta = _tdiv(delta, scale_eff)
-            delta = jnp.clip(delta, -limit - 1, limit)
-            sim = _clamp16((((delta << 12) * scale_eff)
-                            + c0b * q1 + c1b * q2) >> 12)
-        q2 = q1
-        q1 = sim
-        outs.append(delta)
-    codes = jnp.stack(outs, axis=2)
-    codes = jnp.where(zero[:, :, None], 0, codes)
-    scale_raw = jnp.where(zero, 0, scale_raw)
-    end1 = jnp.where(zero, pcm[:, :, -1], q1)
-    end2 = jnp.where(zero, pcm[:, :, -2] if spb >= 2 else s1, q2)
-    m = eff if scale_fix else scale_eff
-    return codes, scale_raw, zero, end1, end2, m
-
-
-def _sim_decode_pass(codes, m, zero, pcm, c0b, c1b, p1, p2, *, spb,
-                     scale_fix, s1_for_spb1=None):
-    """Replay the encoder's SIMULATED decoder over all blocks in parallel
-    given their codes: returns (end1, end2) [L, B].  Identical per-sample
-    recurrence to _encode_pass's quantisation loop, so given exact start
-    states it reproduces the encoder's end states bit for bit.  Note this
-    is the encoder's sim (combined >>12, multiplier m), NOT the real ADX
-    decoder (per-term >>12, Scale+1) — the reference encoder tracks its own
-    sim (adx.cpp:215-273), so reseeding must too."""
-    for t in range(spb):
-        code = codes[:, :, t]
-        if scale_fix:
-            pred = ((c0b * p1) >> 12) + ((c1b * p2) >> 12)
-            sim = _clamp16(code * m + pred)
-        else:
-            sim = _clamp16((((code << 12) * m) + c0b * p1 + c1b * p2) >> 12)
-        p2 = p1
-        p1 = sim
-    end1 = jnp.where(zero, pcm[:, :, -1], p1)
-    end2 = jnp.where(zero,
-                     pcm[:, :, -2] if spb >= 2 else s1_for_spb1, p2)
-    return end1, end2
-
-
-def _adx_encode_reseed_core(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
-                            bit_depth, scale_fix, max_outer, inner_max):
-    """Decode-reseeded encode fixpoint: alternate ONE parallel encode pass
-    with a CONTRACTING sim-decode fixpoint that rebuilds every block's
-    start state from the freshly-emitted codes.
-
-    HYPOTHESIS (round 5) — REFUTED BY MEASUREMENT; kept as the documented
-    negative result. The idea: the chained-end encode fixpoint
-    (_adx_encode_fixpoint_core) propagates exactness ~1 block per pass on
-    tonal content (measured mean 344 passes per 512-block segment on the
-    bench sine) because end-state corrections feed forward one block per
-    pass; the sim-decode recurrence is the same contracting AR(2) as the
-    decoder, so reseeding every start from a decode of the fresh codes
-    should propagate corrections globally per round. Measured on the bench
-    sine (1500 blocks, mode 3, bd 4): the exact frontier advances at
-    EXACTLY +1 block per outer round, every block past it has wrong codes,
-    and each round costs a 56-137-pass inner fixpoint — strictly worse
-    than chained ends. Quantisation feedback makes each block's code
-    stream LSB-sensitive to its start state, so no reseeding shortcut
-    exists: parallel-in-time exact ADX ENCODE is information-limited to
-    ~1 block/pass (unlike decode, whose AR(2) contraction absorbs start
-    errors without flipping outputs).
-
-    Exactness at the fixpoint: starts unchanged means starts equal the
-    exact serial sim of the emitted codes (inner fixpoint converged), and
-    codes equal the encode of those starts — block 0's start is the exact
-    header history, so by induction over blocks the result IS the serial
-    adx_encode_scan output, bit for bit. conv certifies BOTH loops;
-    non-converged results must be discarded (host fallback), as before.
-
-    Returns (codes, scale_raw, zero, conv).
-    """
-    L, B, _ = pcm.shape
-    c0b = c0[:, None]
-    c1b = c1[:, None]
-    h1 = h1.astype(jnp.int32)
-    h2 = h2.astype(jnp.int32)
-
-    def starts_from(e1, e2):
-        n1 = jnp.concatenate([h1[:, None], e1[:, :-1]], axis=1)
-        n2 = jnp.concatenate([h2[:, None], e2[:, :-1]], axis=1)
-        return n1, n2
-
-    def inner(codes, m, zero, d1, d2):
-        def dcond(st):
-            n, _p1, _p2, ch = st
-            return ch & (n < inner_max)
-
-        def dbody(st):
-            n, p1, p2, _ch = st
-            e1, e2 = _sim_decode_pass(codes, m, zero, pcm, c0b, c1b,
-                                      p1, p2, spb=spb, scale_fix=scale_fix,
-                                      s1_for_spb1=p1)
-            n1, n2 = starts_from(e1, e2)
-            ch = jnp.any((n1 != p1) | (n2 != p2))
-            return n + 1, n1, n2, ch
-
-        n, p1, p2, ch = jax.lax.while_loop(
-            dcond, dbody, (jnp.int32(0), d1, d2, jnp.bool_(True)))
-        return p1, p2, ~ch
-
-    def cond(state):
-        nout, _s1, _s2, changed, _dconv = state
-        return changed & (nout < max_outer)
-
-    def body(state):
-        nout, s1, s2, _changed, _dconv = state
-        codes, _sr, zero, _e1, _e2, m = _encode_pass(
-            pcm, c0b, c1b, s1, s2, spb=spb, encoding_mode=encoding_mode,
-            bit_depth=bit_depth, scale_fix=scale_fix)
-        # warm-start the inner fixpoint from the current starts: codes
-        # change little between rounds, so it usually settles in 1-2 passes
-        n1, n2, dconv = inner(codes, m, zero, s1, s2)
-        changed = jnp.any((n1 != s1) | (n2 != s2))
-        return nout + 1, n1, n2, changed, dconv
-
-    # start guesses: block 0 exact (header history), others from the
-    # original signal's block tails (sim tracks it within quant error)
-    g1 = jnp.concatenate([h1[:, None], pcm[:, :-1, -1]], axis=1)
-    if spb >= 2:
-        g2 = jnp.concatenate([h2[:, None], pcm[:, :-1, -2]], axis=1)
-    else:
-        g2 = jnp.concatenate([h2[:, None], g1[:, :-1]], axis=1)
-    nout, s1, s2, changed, dconv = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), g1.astype(jnp.int32),
-                     g2.astype(jnp.int32), jnp.bool_(True),
-                     jnp.bool_(False)))
-    codes, scale_raw, zero, _e1, _e2, _m = _encode_pass(
-        pcm, c0b, c1b, s1, s2, spb=spb, encoding_mode=encoding_mode,
-        bit_depth=bit_depth, scale_fix=scale_fix)
-    return codes, scale_raw, zero, (~changed) & dconv
 
 
 def _adx_encode_fixpoint_core(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
@@ -1066,232 +739,6 @@ def _adx_encode_fixpoint_core(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
     return codes, scale_raw, zero, ~changed, e1[:, -1], e2[:, -1], npass
 
 
-def _serial_dims(L, B, spb, chunk_blocks):
-    """Grid/padding arithmetic shared by the serial Pallas codecs: chunk
-    ~512 samples per grid step (pcm + codes blocks are each Gc*spb*4KB and
-    Mosaic double-buffers both across grid steps — Gc=32 at spb=32 blew the
-    16MB scoped-vmem limit: 17.02M, measured)."""
-    Gc = chunk_blocks or max(1, 512 // spb)
-    SL = -(-L // 128)
-    LN = -(-SL // 8)
-    Lp = LN * 8 * 128
-    NG = -(-B // Gc)
-    Bp = NG * Gc
-    return Gc, LN, Lp, NG, Bp
-
-
-def _serial_lay(x, L, B, Lp, LN, NG, Gc, extra_shape):
-    """[L, B, ...] -> [LN, NG, Gc, ..., 8, 128] (lanes on the VPU tile)."""
-    x = jnp.pad(x, ((0, Lp - L), (0, NG * Gc - B)) +
-                ((0, 0),) * (x.ndim - 2))
-    x = x.reshape((LN, 8, 128, NG, Gc) + extra_shape)
-    perm = (0, 3, 4) + tuple(5 + i for i in range(len(extra_shape))) \
-        + (1, 2)
-    return x.transpose(perm)
-
-
-def _serial_unlay(x, L, B, Lp, Bp, extra_shape):
-    """[LN, NG, Gc, ..., 8, 128] -> [L, B, ...]."""
-    n_extra = len(extra_shape)
-    perm = (0,) + (3 + n_extra, 4 + n_extra) + (1, 2) \
-        + tuple(3 + i for i in range(n_extra))
-    x = x.transpose(perm).reshape((Lp, Bp) + extra_shape)
-    return x[:L, :B]
-
-
-def _tdiv_dyn_exact(a, b):
-    """C-trunc a/b for dynamic b >= 1, |a| < 2^23, without integer division
-    (Mosaic has no VPU int divide): f32 quotient truncated toward zero is
-    off by at most 1, then integer mul/compare corrections make it exact.
-    Proven against _tdiv over the full residual range in tests."""
-    q = (a.astype(jnp.float32) / b.astype(jnp.float32)).astype(jnp.int32)
-    r = a - q * b
-    q = jnp.where(r >= b, q + 1, q)
-    q = jnp.where(r <= -b, q - 1, q)
-    r = a - q * b
-    q = jnp.where((r < 0) & (a >= 0), q - 1, q)
-    q = jnp.where((r > 0) & (a < 0), q + 1, q)
-    return q
-
-
-def _ilog2f(v):
-    """floor(log2(v)) for 1 <= v < 2^24 via the f32 exponent field
-    (population_count is not a Mosaic-supported lowering)."""
-    f = v.astype(jnp.float32)
-    return ((jax.lax.bitcast_convert_type(f, jnp.int32) >> 23) & 0xFF) - 127
-
-
-def adx_encode_serial_pallas(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
-                             bit_depth, scale_fix=False, interpret=False,
-                             chunk_blocks=None):
-    """EXACT serial ADX encode as a VMEM-resident Pallas kernel, lanes
-    vectorised on the VPU tile.
-
-    Why serial: parallel-in-time exact ADX encode is information-limited to
-    ~1 block per fixpoint pass on tonal content (measured — see
-    _adx_encode_reseed_core), so the segmented fixpoint degenerates to MORE
-    sequential vector passes than the plain serial scan (10,334 x 32 steps
-    vs 15,000 x 32 at 10 s/48 kHz), each dragging [L, G, spb] intermediates
-    through HBM. This kernel runs the serial recurrence with every operand
-    in VMEM: the dependent chain is just ~20 VPU ops per sample, blocks
-    stream through the grid (Mosaic double-buffers the HBM fetches), and
-    the per-block scale search is folded to O(1) by precomputing the
-    t >= 2 residual min/max outside the kernel (those residuals depend
-    only on original samples, adx.cpp:215-233 — only resid[0], resid[1]
-    need the live simulated-decoder state).
-
-    Always exact, always "converges" (it IS the serial scan, bit for bit:
-    same per-sample op order as adx_encode_scan; division realised as
-    _tdiv_dyn_exact, ilog2 via the f32 exponent field).
-
-    pcm int32 [L, B, spb] (spb >= 2); returns (codes int32 [L, B, spb],
-    scale_raw int32 [L, B], zero bool [L, B], converged=True).
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert spb >= 2, "serial kernel needs spb >= 2 (scale prefold)"
-    L, B, _ = pcm.shape
-    limit = (1 << (bit_depth - 1)) - 1
-    i32 = jnp.int32
-
-    # ---- XLA-side precompute: t >= 2 residual min/max (original samples)
-    c0c = c0.astype(i32)[:, None, None]
-    c1c = c1.astype(i32)[:, None, None]
-    if spb > 2:
-        resid = ((pcm[:, :, 2:] << 12) - c0c * pcm[:, :, 1:-1]
-                 - c1c * pcm[:, :, :-2]) >> 12
-        mmn = jnp.min(resid, axis=2)
-        mmx = jnp.max(resid, axis=2)
-    else:
-        mmn = jnp.full((L, B), 1 << 30, i32)
-        mmx = jnp.full((L, B), -(1 << 30), i32)
-
-    # ---- lane/block padding + Pallas layout
-    Gc, LN, Lp, NG, Bp = _serial_dims(L, B, spb, chunk_blocks)
-
-    def lay(x, extra_shape):
-        return _serial_lay(x, L, B, Lp, LN, NG, Gc, extra_shape)
-
-    pcm_k = lay(pcm.astype(i32), (spb,))              # [LN,NG,Gc,spb,8,128]
-    mm_k = lay(jnp.stack([mmn, mmx], axis=2), (2,))   # [LN,NG,Gc,2,8,128]
-    coef = jnp.pad(jnp.stack([c0.astype(i32), c1.astype(i32)], axis=1),
-                   ((0, Lp - L), (0, 0)))
-    coef_k = coef.reshape(LN, 8, 128, 2).transpose(0, 3, 1, 2)
-    hist = jnp.pad(jnp.stack([h1.astype(i32), h2.astype(i32)], axis=1),
-                   ((0, Lp - L), (0, 0)))
-    hist_k = hist.reshape(LN, 8, 128, 2).transpose(0, 3, 1, 2)
-
-    def kernel(pcm_ref, mm_ref, coef_ref, hist_ref, codes_ref, sr_ref,
-               zero_ref, state_s):
-        g = pl.program_id(1)
-
-        @pl.when(g == 0)
-        def _():
-            state_s[0] = hist_ref[0, 0]
-            state_s[1] = hist_ref[0, 1]
-
-        a0 = coef_ref[0, 0]
-        a1 = coef_ref[0, 1]
-
-        def block_body(b, carry):
-            q1, q2 = carry
-            blk = pcm_ref[0, 0, b]                    # [spb, 8, 128]
-            x0 = blk[0]
-            x1 = blk[1]
-            resid0 = ((x0 << 12) - a0 * q1 - a1 * q2) >> 12
-            resid1 = ((x1 << 12) - a0 * x0 - a1 * q1) >> 12
-            mn = jnp.minimum(jnp.minimum(mm_ref[0, 0, b, 0], resid0),
-                             jnp.minimum(resid1, 0))
-            mx = jnp.maximum(jnp.maximum(mm_ref[0, 0, b, 1], resid0),
-                             jnp.maximum(resid1, 0))
-            zero = (mn == 0) & (mx == 0)
-
-            scale = _scale_from_minmax(mn, mx, limit, scale_fix=scale_fix)
-            if encoding_mode == 4:
-                power = jnp.where(scale == 0, 0,
-                                  _ilog2f(jnp.maximum(scale, 1)) + 1)
-                scale_eff = (1 << power).astype(i32)
-                scale_raw = 12 - power
-            elif encoding_mode == 2:
-                scale_raw = scale & 0x1FFF
-                scale_eff = scale
-            else:
-                scale_raw = scale
-                scale_eff = scale
-            scale_eff = jnp.maximum(scale_eff, 1)
-            eff = scale_eff if encoding_mode == 4 else scale + 1
-
-            s1, s2 = q1, q2
-            for t in range(spb):
-                x = blk[t]
-                if scale_fix:
-                    pred = ((a0 * s1) >> 12) + ((a1 * s2) >> 12)
-                    delta = x - pred
-                    delta = jnp.where(delta > 0, delta + (eff >> 1),
-                                      delta - (eff >> 1))
-                    delta = _tdiv_dyn_exact(delta, eff)
-                    delta = jnp.clip(delta, -limit - 1, limit)
-                    sim = _clamp16(delta * eff + pred)
-                else:
-                    delta = ((x << 12) - a0 * s1 - a1 * s2) >> 12
-                    delta = jnp.where(delta > 0, delta + (scale_eff >> 1),
-                                      delta - (scale_eff >> 1))
-                    delta = _tdiv_dyn_exact(delta, scale_eff)
-                    delta = jnp.clip(delta, -limit - 1, limit)
-                    sim = _clamp16((((delta << 12) * scale_eff)
-                                    + a0 * s1 + a1 * s2) >> 12)
-                s2 = s1
-                s1 = sim
-                codes_ref[0, 0, b, t] = jnp.where(zero, 0, delta)
-            sr_ref[0, 0, b] = jnp.where(zero, 0, scale_raw)
-            zero_ref[0, 0, b] = zero.astype(i32)
-            e1 = jnp.where(zero, blk[spb - 1], s1)
-            e2 = jnp.where(zero, blk[spb - 2], s2)
-            return e1, e2
-
-        q1, q2 = jax.lax.fori_loop(0, Gc, block_body,
-                                   (state_s[0], state_s[1]))
-        state_s[0] = q1
-        state_s[1] = q2
-
-    mem = dict(memory_space=pltpu.VMEM)
-    codes_k, sr_k, zero_k = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((LN, NG, Gc, spb, 8, 128), i32),
-            jax.ShapeDtypeStruct((LN, NG, Gc, 8, 128), i32),
-            jax.ShapeDtypeStruct((LN, NG, Gc, 8, 128), i32),
-        ),
-        grid=(LN, NG),
-        in_specs=[
-            pl.BlockSpec((1, 1, Gc, spb, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, Gc, 2, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 2, 8, 128), lambda ln, g: (ln, 0, 0, 0),
-                         **mem),
-            pl.BlockSpec((1, 2, 8, 128), lambda ln, g: (ln, 0, 0, 0),
-                         **mem),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, Gc, spb, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, Gc, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, Gc, 8, 128),
-                         lambda ln, g: (ln, g, 0, 0, 0), **mem),
-        ),
-        scratch_shapes=[pltpu.VMEM((2, 8, 128), i32)],
-        interpret=interpret,
-    )(pcm_k, mm_k, coef_k, hist_k)
-
-    codes = _serial_unlay(codes_k, L, B, Lp, Bp, (spb,))
-    scale_raw = _serial_unlay(sr_k, L, B, Lp, Bp, ())
-    zero = _serial_unlay(zero_k, L, B, Lp, Bp, ()).astype(bool)
-    return codes, scale_raw, zero, jnp.bool_(True)
-
-
 def adx_pack_device(codes, scale_field, *, block_size, bit_depth):
     """codes int32 [L, nb, spb] + scale_field int32 [L, nb] -> raw block
     bytes uint8 [L, nb, block_size], on device (inverse of
@@ -1340,20 +787,22 @@ def adx_pack_device(codes, scale_field, *, block_size, bit_depth):
 
 @partial(jax.jit, static_argnames=("spb", "encoding_mode", "bit_depth",
                                    "block_size", "filter_", "scale_fix",
-                                   "max_passes", "engine"))
-def _adx_encode_device_pipeline_jit(pcm, c0, c1, h1, h2, *, spb,
-                                    encoding_mode, bit_depth, block_size,
-                                    filter_, scale_fix, max_passes,
-                                    engine):
-    if engine in ("serial", "interpret"):
-        codes, scale_raw, zero, conv = adx_encode_serial_pallas(
-            pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
-            bit_depth=bit_depth, scale_fix=scale_fix,
-            interpret=engine == "interpret")
-    else:
-        codes, scale_raw, zero, conv = adx_encode_fixpoint(
-            pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
-            bit_depth=bit_depth, scale_fix=scale_fix, max_passes=max_passes)
+                                   "max_passes"))
+def adx_encode_device_pipeline(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
+                               bit_depth, block_size, filter_=0,
+                               scale_fix=False, max_passes=None):
+    """Full on-device ADX encode: PCM blocks -> raw block bytes, both in
+    device memory.
+
+    pcm int32 [L, nb, spb] (one lane per (stream, channel)); returns
+    (payload uint8 [L, nb, block_size], converged bool).  The encode
+    mirror of adx_decode_device_pipeline — the chained-block fixpoint
+    quantisation (XLA, shardable) followed by reshape/shift packing (no
+    VLC).  converged=False results must be discarded for the host encoder
+    (reference hot loop: adx.cpp:215-273, 380-414)."""
+    codes, scale_raw, zero, conv = adx_encode_fixpoint(
+        pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
+        bit_depth=bit_depth, scale_fix=scale_fix, max_passes=max_passes)
     if encoding_mode == 2:
         scale_field = jnp.where(zero, 0,
                                 (filter_ << 13) | (scale_raw & 0x1FFF))
@@ -1362,30 +811,3 @@ def _adx_encode_device_pipeline_jit(pcm, c0, c1, h1, h2, *, spb,
     payload = adx_pack_device(codes, scale_field, block_size=block_size,
                               bit_depth=bit_depth)
     return payload, conv
-
-
-def adx_encode_device_pipeline(pcm, c0, c1, h1, h2, *, spb, encoding_mode,
-                               bit_depth, block_size, filter_=0,
-                               scale_fix=False, max_passes=None,
-                               engine="auto"):
-    """Full on-chip ADX encode: PCM blocks in HBM -> raw block bytes in HBM.
-
-    pcm int32 [L, nb, spb] (one lane per (stream, channel)); returns
-    (payload uint8 [L, nb, block_size], converged bool).  The encode
-    mirror of adx_decode_device_pipeline — quantisation followed by
-    reshape/shift packing (no VLC).  converged=False results must be
-    discarded for the host encoder (reference hot loop: adx.cpp:215-273,
-    380-414).
-
-    engine: "serial" = the VMEM-resident serial Pallas kernel
-    (adx_encode_serial_pallas — always exact, always converged; no GSPMD
-    rule, so mesh-sharded callers must not pick it); "fixpoint" = the
-    chained-block fixpoint (XLA, shardable); "interpret" = serial kernel in
-    Pallas interpret mode (CPU tests); "auto" = serial on TPU (or under
-    PYCRICODECS_PALLAS_INTERPRET=1) for VMEM-safe spb, fixpoint otherwise —
-    resolved BEFORE tracing (_resolve_serial_engine)."""
-    return _adx_encode_device_pipeline_jit(
-        pcm, c0, c1, h1, h2, spb=spb, encoding_mode=encoding_mode,
-        bit_depth=bit_depth, block_size=block_size, filter_=filter_,
-        scale_fix=scale_fix, max_passes=max_passes,
-        engine=_resolve_serial_engine(engine, spb))

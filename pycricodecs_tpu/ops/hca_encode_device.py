@@ -1,4 +1,4 @@
-"""Device-side (JAX) HCA encoder: PCM -> quantised spectra on TPU.
+"""Device-side (JAX) HCA encoder: PCM -> quantised spectra on the device.
 
 The numeric pipeline of the encoder (MDCT, intensity-stereo, scalefactor
 search, rate control, quantisation — hca.cpp:2470-2892) runs as one jitted
@@ -52,23 +52,15 @@ _SQRT2_2_F32 = np.float32(np.sqrt(2.0) / 2.0)
 
 
 def _mdct(pcm_f, window):
-    """wave [B, C, T, 128] -> spectra via fold + DCT4 (hca.cpp:2529-2553).
-
-    NOTE: lane reversal uses jnp.take with a reversed index vector, NOT
-    jnp.flip — on the experimental TPU plugin this composition miscompiles
-    with jnp.flip for batch >= 16 (every output wrong; take lowers through
-    a different path and is stable; verified bit-identical at batch 1).
-    """
+    """wave [B, C, T, 128] -> spectra via fold + DCT4 (hca.cpp:2529-2553)."""
     half = 64
-    rev = jnp.arange(half - 1, -1, -1)
     prev = jnp.concatenate(
         [jnp.zeros_like(pcm_f[:, :, :1, :]), pcm_f[:, :, :-1, :]], axis=2)
-    a = jnp.take(window[:half], rev) * (-pcm_f[..., half:])
-    b = (-window[half:]) * jnp.take(pcm_f[..., :half], rev, axis=-1)
+    a = jnp.flip(window[:half]) * (-pcm_f[..., half:])
+    b = (-window[half:]) * jnp.flip(pcm_f[..., :half], axis=-1)
     first = a - b
     c = window[:half] * prev[..., :half]
-    d = (-jnp.take(window[half:], rev)) \
-        * jnp.take(prev[..., half:], rev, axis=-1)
+    d = (-jnp.flip(window[half:])) * jnp.flip(prev[..., half:], axis=-1)
     second = c - d
     scratch = jnp.concatenate([first, second], axis=-1)
     return _dct4(scratch)
@@ -81,7 +73,7 @@ def _dct4(x):
     sin7 = jnp.asarray(sin7[:64])
     cos7 = jnp.asarray(cos7[:64])
     a = x[..., 0::2]
-    b = jnp.take(x, jnp.arange(127, -1, -1), axis=-1)[..., 0::2]  # x[127-2k]
+    b = jnp.flip(x, axis=-1)[..., 0::2]                  # x[127-2k]
     even = a * cos7 + b * sin7
     odd = a * sin7 - b * cos7
     temp = jnp.stack([even, odd], axis=-1).reshape(shape)
@@ -333,22 +325,16 @@ def _binary_search_boundary(sf, cost_words, header_len, avail, noise_level):
 @partial(jax.jit, static_argnames=("base_band", "total_band", "pairs",
                                    "coded_counts", "channel_types",
                                    "hfr_group_count", "bands_per_hfr_group",
-                                   "hfr_band_count", "frame_size",
-                                   "use_pallas"))
+                                   "hfr_band_count", "frame_size"))
 def hca_encode_transform(pcm, *, base_band, total_band, pairs, coded_counts,
                          channel_types, hfr_group_count, bands_per_hfr_group,
-                         hfr_band_count, frame_size, use_pallas=False):
+                         hfr_band_count, frame_size):
     """PCM16 [B, C, F*1024] -> per-frame encode tensors.
 
     Returns (sf u8, res u8, intensity u8, quantized i16, level i32,
     boundary i32, delta_bits i32, group_avg_sums f32, scaled_group_sums f32).
     Frames whose rate control failed carry level == -1 and must be re-run on
     the host fallback (top-band zeroing, hca.cpp:2816-2828).
-
-    use_pallas runs the MDCT as the VMEM-resident Pallas kernel
-    (pallas_kernels.mdct_enc_pallas, bit-exact with the XLA stage network,
-    which materialises ~1 GB of fp32 temps per stage at 256-stream banks);
-    keep it off under GSPMD meshes (pallas_call has no partitioning rule).
     """
     B, C, total = pcm.shape
     F = total // 1024
@@ -358,15 +344,8 @@ def hca_encode_transform(pcm, *, base_band, total_band, pairs, coded_counts,
         coded[c, :coded_counts[c]] = True
     coded_mask = jnp.asarray(coded)
 
-    if use_pallas:
-        from . import pallas_kernels
-
-        interp = jax.devices()[0].platform != "tpu"
-        spectra = pallas_kernels.mdct_enc_pallas(pcm, interpret=interp)
-    else:
-        wave = (pcm.astype(f32) * f32(1.0 / 32768.0)).reshape(B, C,
-                                                              F * 8, 128)
-        spectra = _mdct(wave, window)                   # [B, C, T, 128]
+    wave = (pcm.astype(f32) * f32(1.0 / 32768.0)).reshape(B, C, F * 8, 128)
+    spectra = _mdct(wave, window)                       # [B, C, T, 128]
     spectra = jnp.moveaxis(spectra.reshape(B, C, F, 8, 128), 1, 2)
 
     spectra, intensity = _encode_intensity(spectra, base_band, total_band,
@@ -508,25 +487,23 @@ def _delta_lengths(sf, coded_counts, channel_types, hfr_group_count):
 
 
 # ---------------------------------------------------------------------------
-# Fused on-device encode: PCM -> HCA frame bytes in HBM
+# Fused on-device encode: PCM -> HCA frame bytes in device memory
 # ---------------------------------------------------------------------------
 
 @partial(jax.jit, static_argnames=("base_band", "total_band", "pairs",
                                    "coded_counts", "channel_types",
                                    "hfr_group_count", "bands_per_hfr_group",
                                    "hfr_band_count", "frame_size",
-                                   "hfr_counts", "hfr_counts2",
-                                   "use_pallas"))
+                                   "hfr_counts", "hfr_counts2"))
 def hca_encode_frames(pcm, *, base_band, total_band, pairs, coded_counts,
                       channel_types, hfr_group_count, bands_per_hfr_group,
-                      hfr_band_count, frame_size, hfr_counts, hfr_counts2,
-                      use_pallas=False):
+                      hfr_band_count, frame_size, hfr_counts, hfr_counts2):
     """PCM16 [B, C, F*1024] -> (frames u8 [B, F, frame_size], fallback [B,F]).
 
     The full encode pipeline on device: transform -> certified-exact HFR
     scale normalisation (ops/hca_hfr_device.py) -> frame packer
-    (ops/hca_pack_device.py).  Frame bytes stay in HBM; nothing but the
-    packed frames (and the tiny fallback mask) ever crosses the link.
+    (ops/hca_pack_device.py).  Frame bytes stay on the device; nothing but
+    the packed frames (and the tiny fallback mask) is fetched.
 
     fallback[b, f] is True where byte-exactness cannot be certified on
     device: rate-control failure (level < 0, reference top-band zeroing
@@ -542,12 +519,10 @@ def hca_encode_frames(pcm, *, base_band, total_band, pairs, coded_counts,
             coded_counts=coded_counts, channel_types=channel_types,
             hfr_group_count=hfr_group_count,
             bands_per_hfr_group=bands_per_hfr_group,
-            hfr_band_count=hfr_band_count, frame_size=frame_size,
-            use_pallas=use_pallas)
+            hfr_band_count=hfr_band_count, frame_size=frame_size)
     # materialisation fence: without it XLA rematerialises transform
-    # intermediates inside the packer's consumers and the fused program
-    # costs ~2x the sum of its stages (636 vs 324 ms measured on-chip at
-    # 256-stream banks; same disease _band_cost_table documents)
+    # intermediates inside the packer's consumers (same disease
+    # _band_cost_table documents)
     sf, res, intensity, quant, level, boundary, delta_bits, ga, gs = \
         jax.lax.optimization_barrier(
             (sf, res, intensity, quant, level, boundary, delta_bits, ga, gs))
@@ -559,16 +534,7 @@ def hca_encode_frames(pcm, *, base_band, total_band, pairs, coded_counts,
         level, boundary, sf, res, intensity, hfr_scales, delta_bits, quant,
         channels=pcm.shape[1], coded_counts=coded_counts,
         channel_types=channel_types, hfr_group_count=hfr_group_count,
-        frame_size=frame_size,
-        # MEASURED NEGATIVE (round 5): routing the scatter through the VMEM
-        # kernel made config 12 SLOWER on-chip (7,713x vs 8,772x) — the
-        # [BF,K,S]->[NBF,KN,KB,S,8,128] re-layout transposes of three
-        # symbol tensors cost more than the mask materialisation they
-        # avoid (XLA largely fuses those masks inside the full program;
-        # the 115 ms standalone figure does not transfer). Kernel kept
-        # (parity-tested) for a future layout that avoids the transposes;
-        # default stays the XLA reduce.
-        pallas_mode=None)
+        frame_size=frame_size)
     return frames, guard | (level < 0)
 
 
@@ -578,7 +544,7 @@ def hca_encode_frames(pcm, *, base_band, total_band, pairs, coded_counts,
 
 def encode_batch_device(wav_blobs, quality: int = 1,
                         force_not_looping: bool = False, mesh=None,
-                        pack: str = "auto"):
+                        pack: str = "auto", stats=None):
     """Encode a batch of same-format WAVs to HCA with the device pipeline.
 
     Streams must share (channels, sample_rate) so they form one jitted shape
@@ -589,11 +555,12 @@ def encode_batch_device(wav_blobs, quality: int = 1,
     encode transform is per-stream; no collectives needed).
 
     pack="device" runs the frame packer + HFR normalisation on device too
-    (hca_encode_frames): only finished frame bytes cross the link, ~6x less
-    traffic than the tensor fetch, and frames can stay in HBM for link-free
-    pipelines.  pack="host" fetches the encode tensors and packs with the
-    native C++ packer.  "auto" picks device on a real TPU, host otherwise
-    (on CPU the XLA packer loses to the native one).
+    (hca_encode_frames): only finished frame bytes are fetched, ~6x less
+    traffic than the tensor fetch.  pack="host" fetches the encode tensors
+    and packs with the native C++ packer.  "auto" takes the choice of
+    `backend` (device on a GPU, host on the CPU, where the XLA packer loses
+    to the native one). Streams re-encoded on the host are counted in
+    `stats.host_fallback_streams`.
     """
     from . import hca_encode_host as H
     from ..utils import wav as wavmod
@@ -640,27 +607,15 @@ def encode_batch_device(wav_blobs, quality: int = 1,
         hfr_band_count=int(cfgs[0].hfr_band_count),
         frame_size=int(info0.frame_size))
 
-    import os as _os
-
     if pack == "auto":
-        import jax as _jax
-        pack = "device" if _jax.devices()[0].platform == "tpu" else "host"
-    # Pallas MDCT: on for real-TPU / interpret-forced runs without a mesh
-    # (pallas_call has no GSPMD rule); PYCRICODECS_NO_PALLAS_MDCT=1 forces
-    # the XLA stage network (same escape hatch family as NO_PALLAS_UNPACK)
-    import jax as _jax
-    use_pallas = (mesh is None
-                  and (_jax.devices()[0].platform == "tpu"
-                       or _os.environ.get("PYCRICODECS_PALLAS_INTERPRET")
-                       == "1")
-                  and _os.environ.get("PYCRICODECS_NO_PALLAS_MDCT") != "1")
+        from .. import backend
+        pack = backend.engine("hca", "encode_pack")
     if pack == "device":
         from .hca_hfr_device import _group_counts
 
         counts, counts2 = _group_counts(info0, int(cfgs[0].hfr_band_count))
         frames, fb = hca_encode_frames(
-            pcm, hfr_counts=tuple(counts), hfr_counts2=tuple(counts2),
-            use_pallas=use_pallas, **kw)
+            pcm, hfr_counts=tuple(counts), hfr_counts2=tuple(counts2), **kw)
         frames = np.asarray(frames[:B])
         fb = np.asarray(fb[:B])
         results = []
@@ -668,6 +623,8 @@ def encode_batch_device(wav_blobs, quality: int = 1,
             F = cfg.info.frame_count
             if fb[b, :F].any():
                 # guard-band or rate-control fallback: exact host path
+                if stats is not None:
+                    stats.host_fallback_streams += 1
                 results.append(H.encode(bytes(wav_blobs[b]),
                                         force_not_looping=force_not_looping,
                                         quality=quality))
@@ -676,9 +633,9 @@ def encode_batch_device(wav_blobs, quality: int = 1,
                                + frames[b, :F].tobytes())
         return results
 
-    out = hca_encode_transform(pcm, use_pallas=use_pallas, **kw)
-    # slice padded mesh rows off on device BEFORE fetching: on slow
-    # device->host links the silence rows are pure wasted transfer
+    out = hca_encode_transform(pcm, **kw)
+    # slice padded mesh rows off on device BEFORE fetching: the silence
+    # rows would be wasted transfer
     sf, res, intensity, quant, level, boundary, delta_bits, ga, gs = \
         [np.asarray(x[:B]) for x in out]
 
@@ -691,6 +648,8 @@ def encode_batch_device(wav_blobs, quality: int = 1,
         F = info.frame_count
         if (level[b, :F] < 0).any():
             # rare rate-control fallback: exact host path for this stream
+            if stats is not None:
+                stats.host_fallback_streams += 1
             results.append(H.encode(bytes(wav_blobs[b]),
                                     force_not_looping=force_not_looping,
                                     quality=quality))

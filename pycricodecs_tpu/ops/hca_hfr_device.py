@@ -12,7 +12,7 @@ calc_hfr_scales): per (frame, channel, group)
         v = avg
     scale = FindScaleFactor(v)        # count of SCALING_TABLE entries <= v
 
-TPU has no float64, but every f64 operation above only feeds *comparisons*
+The device path runs in f32, but every f64 operation above only feeds *comparisons*
 against the 64 static SCALING_TABLE thresholds, and rounding is monotone:
 
     round32(y) >= t   <=>   y >= lo32(t)     (lo32 = least f64 rounding >= t)
@@ -35,8 +35,8 @@ unflagged result is provably byte-identical to the host chain.  Flag
 probability is ~2^-30 per comparison on real content (the band is ~2^-38
 of a ~2^-8-wide scale bucket); flagged frames are correct, just rerouted.
 
-The f32 divisions are made correctly-rounded (TPU lowers f32 divide via
-reciprocal+Newton with no rounding guarantee): candidates q0 and q0+-1ulp
+The f32 divisions are made correctly-rounded (a backend may lower f32 divide
+via reciprocal+Newton with no rounding guarantee): candidates q0 and q0+-1ulp
 are scored by their exact residuals |ga - q*count| (TwoProd; the residual
 subtraction is exact by Sterbenz), ties broken to the even mantissa —
 bit-identical to the host's IEEE division.  A 2-ulp-off q0 or a flushed

@@ -1,10 +1,11 @@
-"""Device-side (JAX) HCA frame packer: encode tensors -> frame bytes in HBM.
+"""Device-side (JAX) HCA frame packer: encode tensors -> frame bytes on the
+device.
 
-The inverse of ops/hca_unpack_device.py, completing the link-free on-chip
+The inverse of ops/hca_unpack_device.py, completing the device
 encode pipeline (reference: PackFrame, /root/reference/CriCodecs/hca.cpp:
 2894-2963, plus the MSB-first BitWriter in IO.cpp).
 
-TPU formulation (no gathers, no scatters, no scans):
+Formulation (no gathers, no scatters, no scans):
 
 - Every frame is the SAME statically-known sequence of N (value, bits)
   symbols: sync(16) + anl/evb(16), then per channel the 3-bit delta-width,
@@ -181,10 +182,9 @@ def _scalefactor_symbols(sf_c, db):
 def _exclusive_prefix(bits):
     """Exclusive prefix sum over the last axis of i32 [B, F, N].
 
-    jnp.cumsum lowers to ~log2(N) full-tensor passes (12 x 1.1 GB of HBM
-    traffic per 256-stream bank — measured as the packer's second-largest
-    wall).  Hierarchical instead: 32-symbol chunks get their local prefix
-    from ONE exact 0/1 triangular matmul on the MXU (widths <= 16, frame
+    jnp.cumsum lowers to ~log2(N) full-tensor passes over the symbol
+    tensor.  Hierarchical instead: 32-symbol chunks get their local prefix
+    from ONE exact 0/1 triangular matmul (widths <= 16, frame
     totals <= fs*8 < 2^24, so f32 at precision=HIGHEST is exact), and only
     the tiny [B, F, K] chunk-total tensor rides a cumsum.
     """
@@ -204,86 +204,7 @@ def _exclusive_prefix(bits):
     return off[..., :N]
 
 
-def _scatter_segments_pallas(rel, hi_c, lo_c, J, interpret=False):
-    """Level-1 chunk-local threshold sums as a VMEM-resident Pallas kernel.
-
-    The XLA formulation materialises the [B,F,K,S,J+1] compare/select
-    masks through HBM (~94 GB per 256-stream bank — pack_scatter measured
-    115 ms standalone, the packer's whale, PROFILE_r04); here each frame
-    tile keeps its chunk symbols in VMEM and the whole reduce is ~20k VPU
-    ops per 1024-frame tile. Frames ride the (sublane, lane) tile axes,
-    thresholds and chunks are fori loops (static unrolls at this size blow
-    Mosaic's trace budget — the MP2 ~40k-op compile lesson).
-
-    rel i32 / hi_c, lo_c u32 [B, F, K, S] -> seg u32 [B, F, K, J].
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, F, K, S = rel.shape
-    BF = B * F
-    NBF = -(-BF // 1024)
-    BFp = NBF * 1024
-    # chunk-axis grid blocking: K is ~55 for stereo q2 frames (8 subframes
-    # x C x coded_count spectrum symbols), so whole-K blocks blew scoped
-    # vmem (48M measured); chunks are independent, KB=8 keeps ~7MB live
-    KB = 8
-    KN = -(-K // KB)
-    Kp = KN * KB
-
-    def lay(x):
-        x = x.reshape(BF, K, S)
-        # rel pads must keep rel >= 0 semantics: zero rows give acc 0
-        x = jnp.pad(x, ((0, BFp - BF), (0, Kp - K), (0, 0)))
-        return x.reshape(NBF, 8, 128, KN, KB, S).transpose(0, 3, 4, 5, 1, 2)
-
-    rel_k, hi_k, lo_k = lay(rel), lay(hi_c), lay(lo_c)
-
-    def kernel(rel_ref, hi_ref, lo_ref, seg_ref):
-        def k_body(k, _c):
-            rels = rel_ref[0, 0, k]                    # [S, 8, 128]
-            # Mosaic has no unsigned reductions: sum in i32 — two's
-            # complement wrap == mod-2^32 u32 sum, bit-identical
-            his = hi_ref[0, 0, k].astype(i32)
-            los = lo_ref[0, 0, k].astype(i32)
-
-            def t_body(t, aprev):
-                thr = t + 1
-                acc = jnp.sum(jnp.where(rels < thr, his, i32(0)), axis=0) \
-                    + jnp.sum(jnp.where(rels + 1 < thr, los, i32(0)),
-                              axis=0)
-                seg_ref[0, 0, k, t] = (acc - aprev).astype(u32)
-                return acc
-
-            jax.lax.fori_loop(0, J, t_body,
-                              jnp.zeros((8, 128), i32))
-            return _c
-
-        jax.lax.fori_loop(0, KB, k_body, jnp.int32(0))
-
-    mem = dict(memory_space=pltpu.VMEM)
-    seg_k = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((NBF, KN, KB, J, 8, 128), u32),
-        grid=(NBF, KN),
-        in_specs=[
-            pl.BlockSpec((1, 1, KB, S, 8, 128),
-                         lambda b, kc: (b, kc, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, KB, S, 8, 128),
-                         lambda b, kc: (b, kc, 0, 0, 0, 0), **mem),
-            pl.BlockSpec((1, 1, KB, S, 8, 128),
-                         lambda b, kc: (b, kc, 0, 0, 0, 0), **mem),
-        ],
-        out_specs=pl.BlockSpec((1, 1, KB, J, 8, 128),
-                               lambda b, kc: (b, kc, 0, 0, 0, 0), **mem),
-        interpret=interpret,
-    )(rel_k, hi_k, lo_k)
-    seg = seg_k.reshape(NBF, Kp, J, 8, 128) \
-        .transpose(0, 3, 4, 1, 2).reshape(BFp, Kp, J)[:BF, :K]
-    return seg.reshape(B, F, K, J)
-
-
-def _scatter_words(w_n, hi, lo, W, max_sym_bits=16, pallas_mode=None):
+def _scatter_words(w_n, hi, lo, W, max_sym_bits=16):
     """Monotone symbol->word scatter, two-level: [B,F,N] -> [B,F,W] u32.
 
     Level 1 (VPU): symbols in chunks of S=32; within a chunk, word indices
@@ -298,12 +219,13 @@ def _scatter_words(w_n, hi, lo, W, max_sym_bits=16, pallas_mode=None):
     passes 13 and shaves the threshold axis 19 -> 17.  A symbol wider than
     the bound would silently DROP from the scatter — callers own the bound.
 
-    Level 2 (MXU): each chunk contributes one contiguous 18-word segment at
-    its (monotone) base word.  Placement = byte-planes of the segments
+    Level 2 (matmul): each chunk contributes one contiguous 18-word segment
+    at its (monotone) base word.  Placement = byte-planes of the segments
     against a {0,1} base-word one-hot, as 4 exact f32 matmuls
-    (einsum 'bfkj,bfkw->bfjw'): plane values <= 255 are exact in bf16
-    multiplicands and partial sums stay < 2^24, so the default TPU matmul
-    precision is bit-exact here.  A final static diagonal fold
+    (einsum 'bfkj,bfkw->bfjw'): plane values <= 255 and partial sums
+    < 2^24 are exact at precision=HIGHEST (asked for explicitly: a default
+    f32 dot may run in a reduced-precision mode).  A final static diagonal
+    fold
     out[w] += X[j, w-j] recombines the planes and segments.
 
     This replaces the direct N x (W+1) threshold reduce (~150 GB of fused
@@ -329,25 +251,20 @@ def _scatter_words(w_n, hi, lo, W, max_sym_bits=16, pallas_mode=None):
     # first two symbols are the 16-bit sync/header words; +31 start skew
     worst_bits = max(S * max_sym_bits, 2 * 16 + (S - 2) * max_sym_bits)
     J = ((31 + worst_bits - 1) >> 5) + 2                # local word span
-    if pallas_mode in ("tpu", "interpret"):
-        seg = _scatter_segments_pallas(rel, hi_c, lo_c, J,
-                                       interpret=pallas_mode == "interpret")
-    else:
-        thr = jnp.arange(J + 1, dtype=i32)              # [J+1]
-        # (measured on-chip: a K-on-lanes transpose of this reduce is ~8%
-        # SLOWER than the natural layout — XLA's layout assignment wins)
-        m_hi = rel[..., None] < thr                     # [B,F,K,S,J+1]
-        m_lo = (rel + 1)[..., None] < thr
-        A = jnp.sum(jnp.where(m_hi, hi_c[..., None], u32(0)), axis=-2) \
-            + jnp.sum(jnp.where(m_lo, lo_c[..., None], u32(0)), axis=-2)
-        seg = A[..., 1:] - A[..., :-1]                  # [B, F, K, J] u32
+    thr = jnp.arange(J + 1, dtype=i32)                  # [J+1]
+    m_hi = rel[..., None] < thr                         # [B,F,K,S,J+1]
+    m_lo = (rel + 1)[..., None] < thr
+    A = jnp.sum(jnp.where(m_hi, hi_c[..., None], u32(0)), axis=-2) \
+        + jnp.sum(jnp.where(m_lo, lo_c[..., None], u32(0)), axis=-2)
+    seg = A[..., 1:] - A[..., :-1]                      # [B, F, K, J] u32
 
     # byte planes -> exact f32 matmul placement against the base one-hot
     planes = jax.lax.bitcast_convert_type(seg, jnp.uint8)  # [B,F,K,J,4]
     planes = planes.reshape(B, F, K, J * 4).astype(jnp.float32)
     onehot = (base[..., None]
               == jnp.arange(W, dtype=i32)).astype(jnp.float32)
-    X = jnp.einsum("bfkj,bfkw->bfjw", planes, onehot)   # [B,F,J*4,W]
+    X = jnp.einsum("bfkj,bfkw->bfjw", planes, onehot,
+                   precision=jax.lax.Precision.HIGHEST)  # [B,F,J*4,W]
     Xw = X.astype(u32).reshape(B, F, J, 4, W)
     Xw = (Xw[..., 0, :] | (Xw[..., 1, :] << 8)
           | (Xw[..., 2, :] << 16) | (Xw[..., 3, :] << 24))  # [B,F,J,W]
@@ -361,11 +278,10 @@ def _scatter_words(w_n, hi, lo, W, max_sym_bits=16, pallas_mode=None):
 
 @partial(jax.jit, static_argnames=("channels", "coded_counts",
                                    "channel_types", "hfr_group_count",
-                                   "frame_size", "pallas_mode"))
+                                   "frame_size"))
 def pack_frames_device(level, boundary, sf, res, intensity, hfr_scales,
                        delta_bits, quant, *, channels, coded_counts,
-                       channel_types, hfr_group_count, frame_size,
-                       pallas_mode=None):
+                       channel_types, hfr_group_count, frame_size):
     """Pack frames on device: encode tensors -> u8 [B, F, frame_size].
 
     level/boundary i32 [B,F]; sf/res u8 [B,F,C,128]; intensity u8 [B,F,C,8];
@@ -447,8 +363,7 @@ def pack_frames_device(level, boundary, sf, res, intensity, hfr_scales,
     W = -(-fs // 4)
     # widest non-header symbol: 13-bit scalefactor escape (delta_bits 7 +
     # raw 6); spectrum <= 12, hfr 6, intensity 4 (see _scatter_words)
-    words = _scatter_words(w_n, hi, lo, W, max_sym_bits=13,
-                           pallas_mode=pallas_mode)    # [B, F, W]
+    words = _scatter_words(w_n, hi, lo, W, max_sym_bits=13)  # [B, F, W]
 
     # CRC16 over frame[:fs-2]: GF(2) linearity as parity-of-popcount —
     # crc bit j = parity(sum_w popcount(words_w & M[w, j])); the sum over
@@ -464,8 +379,7 @@ def pack_frames_device(level, boundary, sf, res, intensity, hfr_scales,
     crc = jnp.sum((cnt & 1).astype(u32) << jnp.arange(16, dtype=u32),
                   axis=-1, dtype=u32)                 # disjoint bits: sum==or
 
-    # big-endian byte layout (static 4-slice stack: no jnp.flip on this
-    # backend — see CLAUDE.md TPU-plugin miscompilation note)
+    # big-endian byte layout (static 4-slice stack)
     le = jax.lax.bitcast_convert_type(words, jnp.uint8)  # [B, F, W, 4] LE
     be = jnp.stack([le[..., 3], le[..., 2], le[..., 1], le[..., 0]], axis=-1)
     payload = be.reshape(B, F, W * 4)[..., :fs - 2]

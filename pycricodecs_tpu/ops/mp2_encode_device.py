@@ -1,11 +1,11 @@
-"""Device-side MPEG Layer II encoder for the AHX codec (full on-chip path).
+"""Device-side MPEG Layer II encoder for the AHX codec (full device path).
 
-The encode mirror of ops/mp2_unpack_device: Layer II has no serial
-dependency anywhere — the analysis filterbank is one MXU matmul, the
+Layer II has no serial
+dependency anywhere — the analysis filterbank is one matmul, the
 psychoacoustic-free greedy bit allocation advances every frame in lockstep,
 and every bitstream offset is a prefix sum over closed-form field widths —
 so the whole pipeline (PCM -> finished frame bytes) runs as one jitted
-program with frames left in HBM.
+program with frames left in device memory.
 
 Determinism contract (the load-bearing design decision): everything AFTER
 the analysis matmul uses only IEEE-exact f32 ops (+,-,*, compares) and
@@ -26,11 +26,11 @@ integer math — no division, no transcendentals, no gathers:
   with a pinned op order shared by the numpy mirror.
 
 Because f32 mul/add/compare are correctly rounded on every backend, the
-post-analysis pipeline is bit-identical across TPU, XLA-CPU, and the numpy
+post-analysis pipeline is bit-identical across XLA backends and the numpy
 mirror (``encode_from_spectra_np``) GIVEN THE SAME SPECTRA.  The analysis
-matmul itself is platform-rounded (MXU vs CPU accumulation order), so
-end-to-end streams are certified by: device bytes == mirror bytes fed with
-the device-computed spectra (the on-chip guard), plus decoded-SNR quality
+matmul itself is platform-rounded (accumulation order differs by backend),
+so end-to-end streams are certified by: device bytes == mirror bytes fed
+with the device-computed spectra (the device guard), plus decoded-SNR quality
 gates vs the float64 host encoder.  The f64 host path
 (models/ahx.py::encode_mp2) remains the default single-file encoder.
 
@@ -180,7 +180,7 @@ _INV_SF32 = (1.0 / T.scalefactors(np.float64)[:63]).astype(np.float32)
 # ---------------------------------------------------------------------------
 
 def _analyze_batch(pcm_f, c_win, m_t):
-    """[B, C, N] f32 (+-1 scale) -> [B, C, T, 32] subbands (MXU matmul)."""
+    """[B, C, N] f32 (+-1 scale) -> [B, C, T, 32] subbands (one matmul)."""
     B, C, N = pcm_f.shape
     Tn = N // 32
     x = pcm_f.reshape(B * C, N)
@@ -297,7 +297,7 @@ def mp2_pack_pipeline(S, pads, *, version, sr_idx, bitrate_idx, mode,
                       bound=32, mode_ext=0):
     """Spectra f32 [B, C, F, 12, 3, 32] -> frame bytes (post-analysis half).
 
-    Split from mp2_encode_frames so parity tests / the on-chip guard can
+    Split from mp2_encode_frames so parity tests / the device guard can
     drive the deterministic half with pinned spectra.
     """
     B, C, F = S.shape[:3]
@@ -458,7 +458,7 @@ def mp2_pack_pipeline(S, pads, *, version, sr_idx, bitrate_idx, mode,
 
     W = -(-(frame_base + 1) // 4)
     from .hca_pack_device import _exclusive_prefix
-    # hierarchical MXU prefix instead of cumsum (exact: widths <= 16 and
+    # hierarchical matmul prefix instead of cumsum (exact: widths <= 16 and
     # frame totals < 2^24 — see hca_pack_device._exclusive_prefix)
     off = _exclusive_prefix(bits)
     keep = (off + bits) <= (W * 32)       # memory-safety; never hit (CBR

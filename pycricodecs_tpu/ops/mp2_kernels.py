@@ -1,6 +1,6 @@
 """MPEG Layer II device kernels (JAX) + numpy references (for the AHX codec).
 
-TPU-first formulation: the ISO synthesis filterbank (matrixing + window
+Formulation: the ISO synthesis filterbank (matrixing + window
 overlap) is a 16-tap FIR of 32x32 matrices with no serial state.  The DEVICE
 path evaluates it as two block-Toeplitz [512, 512] matmuls (``_w_blocks``):
 rows group 16 time steps, so out[b] = X[b-1] @ A + X[b] @ B over a dense
@@ -43,7 +43,7 @@ def _w_blocks(dtype):
       A[j*32:(j+1)*32, r*32:(r+1)*32] = G[r-j+16].T for j > r.
     Same nonzero products as the [T, 512] @ W form, but the operand stays a
     dense [T/16, 512] relayout of the subband tensor — no 16-way shifted
-    concat (16x HBM) and no [T, 32] lane-padded temps (4x HBM on TPU)."""
+    concat (16x memory traffic) and no [T, 32] lane-padded temps."""
     G = T.synthesis_matrices(np.float64)          # [16, 32, 32]
     GT = np.transpose(G, (0, 2, 1))
     A = np.zeros((512, 512), np.float64)
@@ -196,9 +196,10 @@ def _decode_jax_impl(codes, levels, sfidx, sf_table, part_of_row, w_a, w_b):
         sb = jnp.pad(sb, ((0, 0), (0, T16 - Tn), (0, 0)))
     # 16 time steps per row: dense [T/16, 512] operand, block-Toeplitz FIR
     # (see _w_blocks) — prev-block term is a one-row shift, not a 16-way
-    # shifted concat. full-fp32 matmuls: the TPU's default (bf16
-    # multiplicands) costs ~76 int16 LSB of error; HIGHEST keeps the device
-    # within 1 LSB of the float64 reference (tests + real-TPU parity check)
+    # shifted concat. full-fp32 matmuls: a default-precision dot may use
+    # reduced-precision multiplicands (tens of int16 LSB of error); HIGHEST
+    # keeps the device within 1 LSB of the float64 reference (tests +
+    # chip_smoke.py)
     x = sb.reshape(C, T16 // 16, 512)
     xp = jnp.concatenate([jnp.zeros((C, 1, 512), jnp.float32), x[:, :-1]],
                          axis=1)

@@ -379,7 +379,7 @@ def test_adx_scale_fix_does_not_inherit_u16_wrap():
     (3, 5, 12), (3, 11, 13), (3, 15, 17),            # generic 3-byte spans
 ])
 def test_adx_device_pipeline_unpack_exact(oracle, mode, bd, bs):
-    """Full on-chip ADX pipeline (raw block bytes -> device unpack ->
+    """Full device ADX pipeline (raw block bytes -> device unpack ->
     fixpoint ADPCM) is sample-exact vs the host demux+scan for every
     encoding mode and bit-depth family (reference adx.cpp:189-273,
     380-414)."""
@@ -498,13 +498,10 @@ def test_adx_encode_fixpoint_matches_scan(mode, bd, bs, sfix):
     (3, 4, 0x12, True), (4, 12, 0x12, True),
 ])
 def test_adx_encode_serial_pallas_matches_scan(mode, bd, bs, sfix):
-    """The VMEM-resident serial encode kernel (interpret mode on CPU) is
-    bit-identical to the serial encode scan for every mode/bit-depth,
-    including zero-residual blocks, lane padding (odd lane count) and
-    block-chunk padding (odd block count). The serial kernel replaced the
-    fixpoint as the single-chip device engine because parallel-in-time
-    exact encode is information-limited to ~1 block/pass (measured; see
-    adx_kernels._adx_encode_reseed_core)."""
+    """The device encode engine (the chained-block fixpoint) is
+    bit-identical to the serial encode reference for every mode/bit-depth,
+    including zero-residual blocks, an odd lane count, an odd block count
+    and nonzero start history."""
     from pycricodecs_tpu.ops import adx_kernels as K
 
     spb = (bs - 2) * 8 // bd
@@ -527,8 +524,8 @@ def test_adx_encode_serial_pallas_matches_scan(mode, bd, bs, sfix):
     h2 = np.asarray([0, 3, -9], np.int32)
     kw = dict(spb=spb, encoding_mode=mode, bit_depth=bd, scale_fix=sfix)
     want = K.adx_encode_numpy(pcm, c0, c1, h1, h2, **kw)
-    codes, sraw, zero, conv = K.adx_encode_serial_pallas(
-        pcm, c0, c1, h1, h2, interpret=True, **kw)
+    codes, sraw, zero, conv = K.adx_encode_fixpoint(
+        pcm, c0, c1, h1, h2, **kw)
     assert bool(np.asarray(conv))
     assert np.array_equal(np.asarray(codes), want[0])
     assert np.array_equal(np.asarray(sraw), want[1])
@@ -539,9 +536,10 @@ def test_adx_encode_serial_pallas_matches_scan(mode, bd, bs, sfix):
     (3, 4, 0x12), (4, 4, 0x12), (2, 4, 0x12), (3, 8, 0x12), (3, 11, 13),
 ])
 def test_adx_decode_serial_pallas_matches_scan(mode, bd, bs):
-    """The serial decode kernel (interpret mode on CPU) is bit-identical
-    to adx_decode_scan, including mode-2 per-block coefficient selects,
-    clamp saturation, lane padding and chunk padding."""
+    """The device decode engine (the chained-block fixpoint) is
+    bit-identical to adx_decode_scan, including mode-2 per-block
+    coefficient selects, clamp saturation, an odd lane count and an odd
+    block count."""
     import jax.numpy as jnp
 
     from pycricodecs_tpu.ops import adx_kernels as K
@@ -562,9 +560,9 @@ def test_adx_decode_serial_pallas_matches_scan(mode, bd, bs):
         a1 = tab[pick, 1].astype(np.int32)
     h1 = np.asarray([0, 100, -31000], np.int32)
     h2 = np.asarray([0, -40, 32000], np.int32)
-    got, conv = K.adx_decode_serial_pallas(
+    got, conv = K.adx_decode_fixpoint_blocks(
         jnp.asarray(q), jnp.asarray(s), jnp.asarray(a0), jnp.asarray(a1),
-        jnp.asarray(h1), jnp.asarray(h2), interpret=True)
+        jnp.asarray(h1), jnp.asarray(h2))
     assert bool(np.asarray(conv))
     want = K.adx_decode_scan(
         jnp.asarray(q.reshape(L, -1)),
@@ -575,10 +573,10 @@ def test_adx_decode_serial_pallas_matches_scan(mode, bd, bs):
     assert np.array_equal(np.asarray(got).reshape(L, -1), np.asarray(want))
 
 
-def test_tdiv_dyn_exact_matches_tdiv():
-    """The f32-reciprocal + correction division used inside the serial
-    Pallas kernel is exactly C-truncating over the full residual/scale
-    range (|a| <= 2^18+2^12, 1 <= b <= 0x1001)."""
+def test_tdiv_matches_c_truncation():
+    """The device engines' integer division truncates toward zero like C
+    over the full residual/scale range (|a| <= 2^18+2^12,
+    1 <= b <= 0x1001)."""
     import jax.numpy as jnp
 
     from pycricodecs_tpu.ops import adx_kernels as K
@@ -592,8 +590,8 @@ def test_tdiv_dyn_exact_matches_tdiv():
                         2, 2])
     a = np.concatenate([a, edges_a]).astype(np.int32)
     b = np.concatenate([b, edges_b]).astype(np.int32)
-    got = np.asarray(K._tdiv_dyn_exact(jnp.asarray(a), jnp.asarray(b)))
-    want = np.asarray(K._tdiv(jnp.asarray(a), jnp.asarray(b)))
+    got = np.asarray(K._tdiv(jnp.asarray(a), jnp.asarray(b)))
+    want = (np.abs(a.astype(np.int64)) // b) * np.sign(a)
     assert np.array_equal(got, want)
 
 
@@ -634,18 +632,12 @@ def test_adx_encode_batch_device_nonconverged_falls_back(monkeypatch):
 
 
 def test_adx_device_paths_gate_exotic_spb():
-    """bit_depth 2 at block_size 0xFF gives spb=1012: every device engine
-    statically unrolls spb (the fixpoint compile alone ran past 900 s),
-    so engine='auto' refuses the serial kernel and the batch pipelines
-    route such groups to the host lanes — byte-identical results, no
-    minutes-long compile."""
+    """bit_depth 2 at block_size 0xFF gives spb=1012: the device engine
+    statically unrolls spb (the fixpoint compile alone ran past 900 s), so
+    the batch pipelines route such groups to the host lanes —
+    byte-identical results, no minutes-long compile, and no device
+    attempt counted as a fallback."""
     from pycricodecs_tpu import parallel
-    from pycricodecs_tpu.ops import adx_kernels as K
-
-    assert K._resolve_serial_engine("auto", 1012) == "fixpoint"
-    assert K._resolve_serial_engine("auto", 1) == "fixpoint"
-    assert K._resolve_serial_engine("fixpoint", 32) == "fixpoint"
-    assert K._resolve_serial_engine("serial", 1012) == "serial"  # explicit
 
     pcm = make_sine_pcm16(1012 * 6, 2, 48000, seed=60)
     # silence the entire first block (spb=1012): the reproduced reference
@@ -654,8 +646,11 @@ def test_adx_device_paths_gate_exotic_spb():
     wav = write_wav(pcm, 2, 48000)
     kw = dict(bit_depth=2, block_size=0xFF, encoding_mode=3)
     want = adxmod.encode(wav, **kw)
-    got_enc = parallel.adx_encode_batch([wav], device=True, **kw)
+    stats = parallel.DecodeStats()
+    got_enc = parallel.adx_encode_batch([wav], device=True, stats=stats,
+                                        **kw)
     assert got_enc[0] == want
-    got_dec = parallel.adx_decode_batch([want], device=True)
+    got_dec = parallel.adx_decode_batch([want], device=True, stats=stats)
+    assert stats.host_fallback_streams == 0
     assert got_dec[0] == adxmod.decode(want, use_jax=False,
                                        strict_cri_check=False)

@@ -246,10 +246,9 @@ def test_device_encoder_matches_reference(oracle, channels, quality):
 
 
 def test_device_encoder_large_batch(oracle):
-    """Batch >= 16: the experimental TPU plugin miscompiled the MDCT fold
-    when lane reversal used jnp.flip (every output wrong at B >= 16);
-    _mdct now uses jnp.take with a reversed index vector. This pins the
-    shape class on every backend."""
+    """Batch >= 16: a backend once miscompiled the MDCT fold's lane
+    reversal at B >= 16 (every output wrong); this pins the shape class on
+    every backend."""
     from pycricodecs_tpu.ops import hca_encode_device
     wav = _wav(samples=8192, channels=2, seed=300)
     ref = bytes(oracle.HcaEncode(wav, 0, 2))

@@ -121,32 +121,6 @@ def test_pack_device_matches_host(case):
     assert got == host
 
 
-@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[3], CASES[4]],
-                         ids=lambda c: (
-    f"ch{c['channels']}q{c['quality']}r{c.get('rate', 44100)}"
-    f"{'loop' if c.get('loop') else ''}"))
-def test_pack_device_pallas_scatter_matches_xla(case):
-    """The VMEM scatter-segments kernel (interpret mode) packs frames
-    byte-identical to the XLA threshold-reduce path."""
-    from pycricodecs_tpu.ops.hca_pack_device import pack_frames_device
-
-    wav_bytes = _wav(samples=case["samples"], channels=case["channels"],
-                     rate=case.get("rate", 44100), seed=case["seed"] + 40,
-                     loop=case.get("loop", False))
-    info, F, tensors = _encode_tensors(wav_bytes, case["quality"])
-    kw = dict(channels=int(info.channels),
-              coded_counts=tuple(int(x) for x in info.coded_count),
-              channel_types=tuple(int(x) for x in info.channel_type),
-              hfr_group_count=int(info.hfr_group_count),
-              frame_size=int(info.frame_size))
-    import jax.numpy as jnp
-    args = [jnp.asarray(t) for t in tensors]
-    xla = np.asarray(pack_frames_device(*args, **kw))
-    pls = np.asarray(pack_frames_device(*args, **kw,
-                                        pallas_mode="interpret"))
-    assert np.array_equal(xla, pls)
-
-
 @pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4], CASES[8]],
                          ids=lambda c: (
     f"ch{c['channels']}q{c['quality']}r{c.get('rate', 44100)}"

@@ -2,11 +2,9 @@
 reference oracle (/tmp/refbuild, see CLAUDE.md for the build recipe).
 
 150 cases: channels 1-8 x qualities 0-4 x six content kinds, random rates
-and lengths, every fifth case keyed+subkeyed (cipher 56). On the real TPU
-this exercises the full Pallas pipeline (side-info + coefficient unpack
-kernels, fused transform megakernel); on CPU with
-PYCRICODECS_PALLAS_INTERPRET=1 it drives the same kernels in interpret
-mode. Byte-compares WAV output per case.
+and lengths, every fifth case keyed+subkeyed (cipher 56). On a GPU this
+exercises the Triton unpack kernel and the XLA transform; on the CPU the
+XLA scan engine. Byte-compares WAV output per case.
 
 Run: timeout 5400 python3 tools/dev_campaign.py | tee /tmp/dev_campaign.log
 """
