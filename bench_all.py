@@ -281,8 +281,8 @@ def config6():
     cands = rng.integers(1, 1 << 63, K).astype(np.uint64)
     cands[K // 2] = np.uint64(key)
     # warm at the FULL candidate shape: the wave-scoring dispatch compiles
-    # per shape bucket and a remote-backend compile (100s+) would otherwise
-    # land inside the timed region
+    # per shape bucket and its compile would otherwise land inside the
+    # timed region
     parallel.find_key(enc, cands, max_frames=8)
     best = 1e18
     for _ in range(3):
@@ -358,7 +358,6 @@ def config10():
     import jax
     import jax.numpy as jnp
 
-    from pycricodecs_tpu import backend
     from pycricodecs_tpu.ops import hca_encode_host, hca_frame, hca_kernels
     from pycricodecs_tpu.parallel import pipeline
 
@@ -372,8 +371,7 @@ def config10():
 
     pairs = hca_kernels.stereo_pairs_of(info.channel_type) \
         if info.stereo_band_count > 0 else ()
-    fused = pipeline._get_fused_device_decode(
-        info, pairs, backend.engine("hca", "unpack"))
+    fused = pipeline._get_fused_device_decode(info, pairs)
     assert fused is not None
     hfr = hca_kernels.build_hfr_map(
         info.total_band_count, info.base_band_count, info.stereo_band_count,
@@ -668,8 +666,8 @@ def config14():
         best = min(best, time.perf_counter() - t0)
     mixed = total_audio / best
 
-    # homogeneous control: same machinery, same PCM OUTPUT VOLUME (on a
-    # link-bound backend throughput is bytes/s, so matching audio-seconds
+    # homogeneous control: same machinery, same PCM OUTPUT VOLUME (where
+    # the copy-back binds, throughput is bytes/s, so matching audio-seconds
     # alone would let the channel mix skew the ratio), one config
     dur0 = 10.0
     blob0 = hca_encode_host.encode(_sine_wav(dur0, 2, seed=140), quality=2)
@@ -814,7 +812,6 @@ def config17():
     import jax
     import jax.numpy as jnp
 
-    from pycricodecs_tpu import backend
     from pycricodecs_tpu.ops import hca_encode_host, hca_frame, hca_kernels
     from pycricodecs_tpu.parallel import pipeline
     from pycricodecs_tpu.utils.crc import crc16
@@ -854,8 +851,7 @@ def config17():
 
     pairs = hca_kernels.stereo_pairs_of(info.channel_type) \
         if info.stereo_band_count > 0 else ()
-    fused = pipeline._get_fused_device_decode(
-        info, pairs, backend.engine("hca", "unpack"))
+    fused = pipeline._get_fused_device_decode(info, pairs)
     assert fused is not None
     hfr = hca_kernels.build_hfr_map(
         info.total_band_count, info.base_band_count, info.stereo_band_count,
@@ -904,7 +900,6 @@ def config18():
     import jax
     import jax.numpy as jnp
 
-    from pycricodecs_tpu import backend
     from pycricodecs_tpu.models import hca as hcamod
     from pycricodecs_tpu.ops import hca_encode_host, hca_frame, hca_kernels
     from pycricodecs_tpu.parallel import pipeline
@@ -930,8 +925,6 @@ def config18():
         subkeys.append(sk)
         durs.append(dur)
     total_audio = sum(durs)
-
-    unpack = backend.engine("hca", "unpack")
 
     def stage(blob_list, sk_list):
         """Group + stage like decode_batch's device path; returns a list of
@@ -966,7 +959,7 @@ def config18():
                 frames_np[b, :arr.shape[0]] = arr
             pairs = hca_kernels.stereo_pairs_of(info0.channel_type) \
                 if info0.stereo_band_count > 0 else ()
-            fused = pipeline._get_fused_device_decode(info0, pairs, unpack)
+            fused = pipeline._get_fused_device_decode(info0, pairs)
             assert fused is not None, "mixed group fell off the device path"
 
             @jax.jit

@@ -94,7 +94,6 @@ def memory_report(blobs, key=KEY):
     bank's chunk shape."""
     import jax
 
-    from pycricodecs_tpu import backend
     from pycricodecs_tpu.ops import hca_frame, hca_kernels
     from pycricodecs_tpu.parallel import pipeline
 
@@ -102,8 +101,7 @@ def memory_report(blobs, key=KEY):
     hs = int.from_bytes(blob[6:8], "big")
     info = hca_frame.parse_header(blob[:hs])
     pairs = hca_kernels.stereo_pairs_of(info.channel_type)
-    step = pipeline._get_fused_device_decode(
-        info, pairs, backend.engine("hca", "unpack"))
+    step = pipeline._get_fused_device_decode(info, pairs)
     B = min(len(blobs), 64)
     F = -(-info.frame_count // 32) * 32
     sds = jax.ShapeDtypeStruct

@@ -3,7 +3,7 @@
 The choice follows the platform of the first JAX device and is read outside
 `jit`, so a compiled program never depends on it:
 
-- "gpu": the device engines (batched XLA programs, the Triton unpack kernel);
+- "gpu": the device engines (batched XLA programs);
 - "cpu": the host C++ lanes where the stage has them, XLA on the CPU
   otherwise.
 
@@ -18,8 +18,6 @@ import jax
 ENGINES = {
     # bank decode: batched device dispatch vs per-stream C++ lanes
     ("hca", "decode"): {"gpu": "device", "cpu": "host"},
-    # bitstream unpack inside the device decode
-    ("hca", "unpack"): {"gpu": "triton", "cpu": "scan"},
     # HCA device encode: frame packer on the device vs the C++ packer
     ("hca", "encode_pack"): {"gpu": "device", "cpu": "host"},
     # AHX bank decode: device synthesis vs the float64 host path

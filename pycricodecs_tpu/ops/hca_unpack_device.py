@@ -1,26 +1,22 @@
 """Device-side (JAX) HCA frame unpacker.
 
 The HCA bitstream is serial WITHIN a frame (variable-length codes move a bit
-cursor) but frames are independent, so the unpack is SPMD across frames:
-every frame executes the same statically-known sequence of semantic steps
-(the per-channel scalefactor/intensity sections, then 8 x coded_count
-coefficient reads — the sequence depends only on the header config, never on
-frame content).
+cursor) but frames are independent, so the unpack is SPMD across frames with
+`lax.scan` over the serial step sequence: every frame executes the same
+statically-known sequence of semantic steps (the per-channel
+scalefactor/intensity sections, then 8 x coded_count coefficient reads —
+the sequence depends only on the header config, never on frame content).
 
-Two engines share every piece of bit and VLC arithmetic below:
+Gather-free formulation: bit windows are fetched by a one-hot
+compare+reduce over the frame's ALIGNED u32 word table funnel-shifted to
+the byte offset, the VLC tables are evaluated as closed forms and
+packed-nibble constants muxed by 3-bit binary trees, and the per-step
+resolution/output routing uses static slices/reshapes instead of
+gather/scatter. Supersteps: one 128-bit window (4 words, one traversal)
+serves 10 VLC symbols (max 12 bits each: 7 + 120 < 128), cutting window
+fetches 10x.
 
-- "triton": one Pallas kernel lowered through Triton (_unpack_triton). Each
-  lane of a program owns one frame; the bit cursor stays in registers
-  through an in-kernel loop over channels -> side info -> 8 subframes x coded
-  bands, and window words come from direct indexed loads of the deciphered
-  word table. This is the GPU engine.
-- "scan": plain XLA, a `lax.scan` over supersteps (_coefficients and
-  friends). Window words are fetched by a one-hot compare+reduce over the
-  frame's aligned u32 word table, so the scan body needs no gather. It is
-  the engine on the CPU and the reference the kernel is tested against.
-
-Supersteps: one 128-bit window (4 words) serves 10 VLC symbols (max 12 bits
-each: 7 + 120 < 128), so both engines fetch one window per 10 symbols.
+Raw frame bytes are ~10x less H2D volume than unpacked SoA tensors.
 
 Bit-exactness: all arithmetic is integer; semantics mirror
 ops/hca_frame.py::_unpack_frames_py line by line (itself locked against the
@@ -40,8 +36,6 @@ Reference anchors: hca.cpp:1290-1355 (scalefactors), 1357-1434 (intensity),
 1444-1494 (resolutions), 1543-1577 (dequantize).
 """
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -69,8 +63,9 @@ _VAL_HI = [0x88888888, 0x88888888, 0x88888888, 0x88888888,
 # Combined (value, advance) byte tables: VB[r][k] packs codes 4k..4k+3 of
 # resolution r as one byte each — low nibble = value+8, high nibble = the
 # bit advance — derived from the packed nibble tables above so they cannot
-# drift. Per-symbol (rb, vb) data is computed from the resolution once
-# (_vlc_tables) and replayed through _vlc_symbol_fast.
+# drift. The coefficient phase reads these as PRECOMPUTED per-symbol data
+# (computed once per frame-symbol, reused by all 8 subframes) instead of
+# re-deriving four 3-bit muxes per symbol instance.
 _VB = [[0] * 4 for _ in range(8)]
 for _r in range(8):
     for _code in range(16):
@@ -82,16 +77,6 @@ for _r in range(8):
             _adv = (_BIT_HI[_r] >> ((_code - 8) * 4)) & 0xF
         _VB[_r][_code >> 2] |= (_val | (_adv << 4)) << ((_code & 3) * 8)
 del _r, _code, _val, _adv
-
-# INVERT_TABLE is monotone non-increasing, so invert[cp] equals the number of
-# thresholds B_v = max{i : invert[i] >= v} with cp <= B_v (_res_of).
-_INVERT = np.asarray(T.INVERT_TABLE, np.int32)
-assert (np.diff(_INVERT) <= 0).all()
-_INVERT_THRESHOLDS = [int(np.max(np.nonzero(_INVERT >= v)[0]))
-                      for v in range(1, int(_INVERT.max()) + 1)]
-
-# Frames per Triton program (one frame per lane, one warp per 32 lanes).
-TRITON_BLOCK = 64
 
 
 def _mux8(consts, r):
@@ -146,12 +131,6 @@ def _lcg_jump(n_draws):
     return x
 
 
-def triton_block(n_frames: int) -> int:
-    """Frames per Triton program: TRITON_BLOCK, or the next power of two
-    (at least 16) when the whole batch is smaller than one block."""
-    return min(TRITON_BLOCK, max(16, 1 << max(n_frames - 1, 0).bit_length()))
-
-
 class DeviceUnpacker:
     """Per-config compiled unpacker. Build once per HcaInfo config, call with
     uint8 [N, frame_size] stacked (enciphered) frames."""
@@ -160,9 +139,9 @@ class DeviceUnpacker:
         C = int(info.channels)
         self.C = C
         self.fs = int(info.frame_size)
-        # aligned word-table width: the one-hot fetch reads the two 8-word
-        # chunks at (q>>3) and (q>>3)+1 with q <= (fs-1)>>2, so nc chunks
-        # keep every candidate in range (zero padding past the frame end)
+        # aligned word-table width: fetches read the two 8-word chunks at
+        # (q>>3) and (q>>3)+1 with q <= (fs-1)>>2, so nc chunks keep every
+        # candidate in range (zero padding past the frame end)
         self.nc = ((int(info.frame_size) - 1) // 4) // 8 + 2
         self.wn = self.nc * 8
         self.version = int(info.version)
@@ -200,21 +179,22 @@ class DeviceUnpacker:
                 raise ValueError("cs_count == 128 with HFR extension")
             self.cs_counts.append(cs)
             self.extras.append(extra)
-        self._jit = jax.jit(self._unpack,
-                            static_argnames=("B", "engine", "interpret"))
+        self._jit = jax.jit(self._unpack, static_argnames=("B",))
 
     # -- bit primitives ------------------------------------------------------
     #
-    # Every reader takes `fetch(q, nwords)`: the aligned words
-    # wa[q], .., wa[q+nwords-1] of each lane's frame. The scan engine builds
-    # it from a one-hot reduce over the word table (_wa_words); the Triton
-    # kernel from direct indexed loads. The funnel shift, the window
-    # extraction and everything above it are shared.
+    # One-hot window fetches: a compare+masked-reduce over the ALIGNED
+    # [N, ceil(fs/4)+5] u32 word table; the fetched aligned words are
+    # funnel-shifted by the byte remainder into byte-offset windows. XLA
+    # fuses all candidate words of one fetch into a single traversal (one
+    # variadic select_reduce).
 
     def _wa_words(self, wa, q, nwords):
-        """One-hot fetch (scan engine): a compare+reduce picks the two
-        8-word chunks containing the span (one fused traversal of the
-        table), then a 3-bit mux slides to the word remainder."""
+        """Aligned words wa[q], .., wa[q+nwords-1] (nwords <= 9), two-level:
+        a one-hot compare+reduce picks the two 8-word chunks containing the
+        span (one fused traversal of the table, ~2 select+add per element vs
+        ~3 per element PER WORD for the flat per-word one-hot), then a 3-bit
+        mux (7 selects/word) slides to the word remainder."""
         wc = wa.reshape(wa.shape[0], self.nc, 8)
         qc = q >> 3
         ci = jnp.arange(self.nc, dtype=jnp.int32)[None, :, None]
@@ -237,32 +217,34 @@ class DeviceUnpacker:
                           (w[k] << r) | (w[k + 1] >> (jnp.uint32(32) - r)),
                           w[k]) for k in range(len(w) - 1)]
 
-    def _window(self, fetch, cur, nwords):
-        """`nwords` funneled u32 words starting at byte(cur); returns
-        (words, bit position of the window start)."""
+    def _peek(self, wa, cur, count):
+        """BitReader.peek: any read crossing the frame end returns 0."""
         bb = jnp.minimum(cur >> 3, self.fs - 1)
         q = bb >> 2
         r = ((bb & 3) << 3).astype(jnp.uint32)
-        return self._funnel(fetch(q, nwords + 1), r), bb * 8
-
-    def _peek(self, fetch, cur, count):
-        """BitReader.peek: any read crossing the frame end returns 0."""
-        w = self._window(fetch, cur, 1)[0][0]
+        w = self._funnel(self._wa_words(wa, q, 2), r)[0]
         count = jnp.broadcast_to(jnp.asarray(count, jnp.int32), cur.shape)
         shift = (32 - (cur & 7) - jnp.clip(count, 0, 25)).astype(jnp.uint32)
         val = (w >> shift).astype(jnp.int32) & (jnp.left_shift(1, count) - 1)
         ok = (cur + count <= self.fs * 8) & (count > 0)
         return jnp.where(ok, val, 0)
 
-    def _win64(self, fetch, cur):
-        """Two u32 window words at byte(cur) and byte(cur)+4."""
-        ws, base = self._window(fetch, cur, 2)
-        return ws[0], ws[1], base
+    def _win64(self, wa, cur):
+        """Two u32 window words at byte(cur) and byte(cur)+4, one traversal."""
+        bb = jnp.minimum(cur >> 3, self.fs - 1)
+        q = bb >> 2
+        r = ((bb & 3) << 3).astype(jnp.uint32)
+        ws = self._funnel(self._wa_words(wa, q, 3), r)
+        return ws[0], ws[1], bb * 8
 
-    def _win128(self, fetch, cur):
-        """Four u32 window words (128 bits): serves 10 symbols of <= 12
-        bits (7 + 120 < 128)."""
-        return self._window(fetch, cur, 4)
+    def _win128(self, wa, cur):
+        """Four u32 window words (128 bits) in one traversal: serves 10
+        symbols of <= 12 bits (7 + 120 < 128)."""
+        bb = jnp.minimum(cur >> 3, self.fs - 1)
+        q = bb >> 2
+        r = ((bb & 3) << 3).astype(jnp.uint32)
+        ws = self._funnel(self._wa_words(wa, q, 5), r)
+        return ws, bb * 8
 
     def _ext128(self, ws, o, count, abs_cur):
         """Extract `count` (<= 12) bits at local offset `o` of the 128-bit
@@ -309,7 +291,7 @@ class DeviceUnpacker:
         ok = (abs_cur + count <= self.fs * 8) & (count > 0)
         return jnp.where(ok, val, 0)
 
-    # -- side info -----------------------------------------------------------
+    # -- phases --------------------------------------------------------------
 
     def _sf_symbol(self, ws, o, cur, value, err, act, mode):
         """One scalefactor symbol (delta/abs/zero mode per frame lane).
@@ -335,42 +317,21 @@ class DeviceUnpacker:
 
     _SF_G = 10  # scalefactor symbols per 128-bit window (<= 11 bits each)
 
-    def _sf_header(self, fetch, cur):
-        """delta_bits + first value of a scalefactor section. Returns
-        (sf0 i32, mode, cur)."""
-        db = self._peek(fetch, cur, 3)
+    def _scalefactors_channel(self, wa, cur, err, c):
+        """One channel's scalefactor section. Returns (sf [N,128], cur, err)."""
+        N = cur.shape[0]
+        cs = self.cs_counts[c]
+        db = self._peek(wa, cur, 3)
         cur = cur + 3
-        v0 = self._peek(fetch, cur, 6)
+        v0 = self._peek(wa, cur, 6)
         has_first = db > 0
         cur = cur + jnp.where(has_first, 6, 0)
         sf0 = jnp.where(has_first, v0, 0)
-        mode = (db >= 6, (db >= 1) & (db <= 5), db,
-                jnp.left_shift(1, db) - 1,
-                (jnp.left_shift(1, db) - 1) >> 1)
-        return sf0, mode, cur
-
-    def _sf_superstep(self, fetch, cur, value, err, acts, mode):
-        """len(acts) (<= 10) scalefactor symbols from one 128-bit window.
-        Returns (cur, value, err, [sf_i per symbol])."""
-        ws, base = self._win128(fetch, cur)
-        o = cur - base
-        outs = []
-        for act in acts:
-            sf_i, adv, value, err = self._sf_symbol(
-                ws, o, cur, value, err, act, mode)
-            outs.append(sf_i)
-            cur = cur + adv
-            o = o + adv
-        return cur, value, err, outs
-
-    def _scalefactors_channel(self, fetch, cur, err, c):
-        """One channel's scalefactor section (scan engine).
-        Returns (sf [N,128], cur, err)."""
-        N = cur.shape[0]
-        cs = self.cs_counts[c]
-        sf0, mode, cur = self._sf_header(fetch, cur)
 
         if cs > 1:
+            mode = (db >= 6, (db >= 1) & (db <= 5), db,
+                    jnp.left_shift(1, db) - 1,
+                    (jnp.left_shift(1, db) - 1) >> 1)
             # supersteps: 10 symbols (each <= 5+6 = 11 bits -> all end
             # within the 128-bit window) per fetch; tail padded inactive
             G = self._SF_G
@@ -381,11 +342,16 @@ class DeviceUnpacker:
 
             def step(carry, act):
                 cur, value, err = carry
-                cur, value, err, outs = self._sf_superstep(
-                    fetch, cur, value, err, [act[j] for j in range(G)],
-                    mode)
-                return (cur, value, err), jnp.stack(
-                    [o.astype(jnp.uint8) for o in outs])
+                ws, base = self._win128(wa, cur)
+                o = cur - base
+                outs = []
+                for j in range(G):
+                    sf_i, adv, value, err = self._sf_symbol(
+                        ws, o, cur, value, err, act[j], mode)
+                    outs.append(sf_i.astype(jnp.uint8))
+                    cur = cur + adv
+                    o = o + adv
+                return (cur, value, err), jnp.stack(outs)
 
             (cur, _v, err), ys = jax.lax.scan(
                 step, (cur, sf0, err), jnp.asarray(active))
@@ -423,64 +389,56 @@ class DeviceUnpacker:
                         jnp.where(delta_m, bits + jnp.where(esc, 4, 0), 0))
         return vi, adv, value, err
 
-    def _intensity_section(self, fetch, cur, err, c):
-        """Intensity (secondary) / v2 HFR scales (other types).
-        Returns (intensity: 8 i32 vectors or None, v2 HFR scales: list of
-        i32 vectors, cur, err)."""
+    def _intensity_channel(self, wa, cur, err, c, sf_c):
+        """Intensity (secondary) / v2 HFR scales (other types). Returns
+        (intensity [N,8] u8, sf_c possibly updated, cur, err)."""
+        N = cur.shape[0]
+        zero8 = jnp.zeros((N, 8), dtype=jnp.uint8)
         if self.ctype[c] == T.STEREO_SECONDARY:
-            v4 = self._peek(fetch, cur, 4)
+            v4 = self._peek(wa, cur, 4)
             flag = v4 < 15
             if self.version <= VERSION_V200:
                 # hca.cpp:1357-1377: intensity[0] stored even when >= 15,
                 # cursor advances only when < 15
                 cur = cur + jnp.where(flag, 4, 0)
-                cols = [v4]
+                cols = [v4.astype(jnp.uint8)]
                 for _ in range(7):
-                    vi = self._peek(fetch, cur, 4)
+                    vi = self._peek(wa, cur, 4)
                     cur = cur + jnp.where(flag, 4, 0)
-                    cols.append(jnp.where(flag, vi, 0))
-                return cols, [], cur, err
-            # v3: skip(4) in both branches; delta-coded follow-ups.
-            # 8 x <= 7-bit symbols all fit one 64-bit window fetched at
-            # the section start (4+2 header + 7*7 <= 55 bits).
-            w0, w1, base = self._win64(fetch, cur)
-            o = cur - base
-            cur = cur + 4
-            o = o + 4
-            db2 = self._ext64(w0, w1, o, 2, cur)
-            cur = cur + jnp.where(flag, 2, 0)
-            o = o + jnp.where(flag, 2, 0)
-            value = v4
-            mode3 = (flag & (db2 == 3), flag & (db2 < 3),
-                     jnp.where(flag & (db2 < 3), db2 + 1, 0),
-                     jnp.left_shift(2, db2) - 1)
-            cols = [jnp.where(flag, v4, 7)]
-            for _ in range(7):
-                vi, adv, value, err = self._inten3_symbol(
-                    w0, w1, o, cur, value, err, mode3)
-                cols.append(vi & 0xFF)
-                cur = cur + adv
-                o = o + adv
-            return cols, [], cur, err
-        hf = []
+                    cols.append(jnp.where(flag, vi, 0).astype(jnp.uint8))
+                inten = jnp.stack(cols, axis=1)
+            else:
+                # v3: skip(4) in both branches; delta-coded follow-ups.
+                # 8 x <= 7-bit symbols all fit one 64-bit window fetched at
+                # the section start (4+2 header + 7*7 <= 55 bits).
+                w0, w1, base = self._win64(wa, cur)
+                o = cur - base
+                cur = cur + 4
+                o = o + 4
+                db2 = self._ext64(w0, w1, o, 2, cur)
+                cur = cur + jnp.where(flag, 2, 0)
+                o = o + jnp.where(flag, 2, 0)
+                value = v4
+                mode3 = (flag & (db2 == 3), flag & (db2 < 3),
+                         jnp.where(flag & (db2 < 3), db2 + 1, 0),
+                         jnp.left_shift(2, db2) - 1)
+                cols = [jnp.where(flag, v4, 7).astype(jnp.uint8)]
+                for _ in range(7):
+                    vi, adv, value, err = self._inten3_symbol(
+                        w0, w1, o, cur, value, err, mode3)
+                    cols.append((vi & 0xFF).astype(jnp.uint8))
+                    cur = cur + adv
+                    o = o + adv
+                inten = jnp.stack(cols, axis=1)
+            return inten, sf_c, cur, err
         if self.version <= VERSION_V200 and self.hfr > 0:
+            cols = []
             for _i in range(self.hfr):
-                hf.append(self._peek(fetch, cur, 6))
+                cols.append(self._peek(wa, cur, 6).astype(jnp.uint8))
                 cur = cur + 6
-        return None, hf, cur, err
-
-    def _intensity_channel(self, fetch, cur, err, c, sf_c):
-        """Scan-engine layout of _intensity_section: (intensity [N,8] u8,
-        sf_c with the v2 HFR scales written, cur, err)."""
-        cols, hf, cur, err = self._intensity_section(fetch, cur, err, c)
-        if cols is None:
-            inten = jnp.zeros((cur.shape[0], 8), dtype=jnp.uint8)
-        else:
-            inten = jnp.stack([x.astype(jnp.uint8) for x in cols], axis=1)
-        if hf:
-            sf_c = sf_c.at[:, 128 - self.hfr:].set(
-                jnp.stack([x.astype(jnp.uint8) for x in hf], axis=1))
-        return inten, sf_c, cur, err
+            hf = jnp.stack(cols, axis=1)                       # [N, hfr]
+            sf_c = sf_c.at[:, 128 - self.hfr:].set(hf)
+        return zero8, sf_c, cur, err
 
     def _noise(self, sf, res, B):
         """PNS noise gather maps (reconstruct_noise, hca.cpp:1602-1635),
@@ -532,33 +490,29 @@ class DeviceUnpacker:
         return (src.astype(jnp.int32), sci.astype(jnp.uint8),
                 jnp.broadcast_to(mask, src.shape))
 
-    def _res_of(self, sf_i, ath, packed_noise, k):
-        """calc_resolutions (hca.cpp:1444-1494) for band k of a coded band:
-        elementwise over broadcastable sf_i / ath / packed_noise / k.
-        invert[cp] is 14 integer compares against _INVERT_THRESHOLDS, not
-        a table gather."""
-        noise_level = ath + ((packed_noise + k) >> 8)
+    def _resolutions(self, sf, packed_noise, ath_i32):
+        """calc_resolutions (hca.cpp:1444-1494), vectorised [N, C, 128].
+        INVERT_TABLE is monotone non-increasing, so invert[cp] equals the
+        number of thresholds B_v = max{i : invert[i] >= v} with cp <= B_v —
+        14 integer compares instead of a 66-way one-hot reduce."""
+        k = jnp.arange(128, dtype=jnp.int32)
+        coded = jnp.asarray(self.coded, jnp.int32)[None, :, None]
+        sf_i = sf.astype(jnp.int32)
+        ath = ath_i32.astype(jnp.int32)[None, None, :]
+        noise_level = ath + ((packed_noise[:, None, None] + k) >> 8)
         curve_pos = noise_level + 1 - ((5 * sf_i) >> 1)
         cp = jnp.clip(curve_pos, 0, 65)
+        invert = np.asarray(T.INVERT_TABLE, np.int32)
+        assert (np.diff(invert) <= 0).all()  # monotone: thresholds valid
         inv = jnp.zeros(cp.shape, jnp.int32)
-        for thr in _INVERT_THRESHOLDS:
-            inv = inv + (cp <= thr)
+        for v in range(1, int(invert.max()) + 1):
+            inv = inv + (cp <= int(np.max(np.nonzero(invert >= v)[0])))
         r = jnp.where(curve_pos < 0, 15,
                       jnp.where(curve_pos <= 65, inv, 0))
         r = jnp.clip(r, self.min_res, self.max_res)
-        return jnp.where(sf_i > 0, r, 0)
-
-    def _resolutions(self, sf, packed_noise, ath_i32):
-        """Resolutions of every band, vectorised [N, C, 128] u8."""
-        k = jnp.arange(128, dtype=jnp.int32)
-        coded = jnp.asarray(self.coded, jnp.int32)[None, :, None]
-        r = self._res_of(sf.astype(jnp.int32),
-                         ath_i32.astype(jnp.int32)[None, None, :],
-                         packed_noise[:, None, None], k)
+        r = jnp.where(sf_i > 0, r, 0)
         r = jnp.where(k[None, None, :] < coded, r, 0)
         return r.astype(jnp.uint8)
-
-    # -- coefficients --------------------------------------------------------
 
     _G = 10  # symbols per 128-bit window superstep
 
@@ -577,9 +531,9 @@ class DeviceUnpacker:
         return prog.T.reshape(Sp // G, G, N), S
 
     def _vlc_symbol(self, ws, o, cur, r):
-        """One VLC symbol at window offset `o` (abs position `cur`) from the
-        resolution alone: returns (value i32, advance i32). The reference
-        form of _vlc_symbol_fast (pinned equal by tests)."""
+        """One VLC symbol at window offset `o` (abs position `cur`):
+        returns (value i32, advance i32). The reference form of
+        _vlc_symbol_fast (pinned equal by tests)."""
         bits = _max_bit(r)
         code = self._ext128(ws, o, bits, cur)
         big = r > 7
@@ -592,27 +546,25 @@ class DeviceUnpacker:
         adv = jnp.where(big, adv_big, adv_small)
         return value, adv
 
-    @staticmethod
-    def _vlc_tables(r):
-        """Per-symbol VLC data from the resolution: rb = r | (MAX_BIT(r) <<
-        8) (i32) and vb = the 4 packed (value, advance) byte-table words for
-        codes 0..15 (u32, _VB layout), each shaped like r."""
+    def _vlc_prog(self, res_prog):
+        """Precompute per-symbol VLC data from the resolution program:
+        rb = r | (MAX_BIT(r) << 8) (i32) and vb[...,4] = the packed
+        (value, advance) byte table for codes 0..15 (u32, _VB layout).
+        Computed ONCE per frame-symbol; the coefficient phase replays the
+        same program for all 8 subframes, so the four 3-bit muxes + MAX_BIT
+        leave the symbol chain. Shapes: res_prog [..., N] ->
+        (rb [..., N], vb [..., 4, N])."""
+        r = res_prog
         rb = r | (_max_bit(r) << 8)
         small = jnp.minimum(r, 7)
-        vb = [_mux8([_VB[rr][k] for rr in range(8)], small)
-              for k in range(4)]
+        vb = jnp.stack([_mux8([_VB[rr][k] for rr in range(8)], small)
+                        for k in range(4)], axis=-2)
         return rb, vb
 
-    def _vlc_prog(self, res_prog):
-        """_vlc_tables over the whole resolution program, computed ONCE per
-        frame-symbol and replayed for all 8 subframes. Shapes: res_prog
-        [..., N] -> (rb [..., N], vb [..., 4, N])."""
-        rb, vb = self._vlc_tables(res_prog)
-        return rb, jnp.stack(vb, axis=-2)
-
     def _vlc_symbol_fast(self, ws, o, cur, rb, vb):
-        """_vlc_symbol with the table muxes precomputed (_vlc_tables): rb
-        carries r|bits<<8, vb the 4-word packed byte table."""
+        """_vlc_symbol with the table muxes precomputed (_vlc_prog): rb
+        carries r|bits<<8, vb the 4-word packed byte table. Bit-identical
+        to _vlc_symbol (pinned by tests)."""
         bits = rb >> 8
         r = rb & 0xFF
         code = self._ext128(ws, o, bits, cur)
@@ -629,19 +581,6 @@ class DeviceUnpacker:
         adv = jnp.where(big, adv_big, byte >> 4)
         return value, adv
 
-    def _coef_superstep(self, fetch, cur, rbs, vbs):
-        """len(rbs) (<= 10) VLC symbols from one 128-bit window.
-        Returns (cur, [value i32 per symbol])."""
-        ws, base = self._win128(fetch, cur)
-        o = cur - base
-        vals = []
-        for rb, vb in zip(rbs, vbs):
-            value, adv = self._vlc_symbol_fast(ws, o, cur, rb, vb)
-            vals.append(value)
-            cur = cur + adv
-            o = o + adv
-        return cur, vals
-
     def _route_qc(self, per_sub, N):
         """Program-order symbols [8, S, N] -> qc [N, C, 8, 128] int16 with
         static slices/pads — no scatter."""
@@ -656,9 +595,12 @@ class DeviceUnpacker:
         qc = jnp.stack(chans, axis=0)                    # [C, 8, 128, N]
         return qc.transpose(3, 0, 1, 2)
 
-    def _coefficients(self, fetch, cur, res):
-        """8 x C x coded_count VLC reads -> qc [N, C, 8, 128] int16 (scan
-        engine: one lax.scan over supersteps per subframe)."""
+    def _coefficients(self, wa, cur, res):
+        """8 x C x coded_count VLC reads -> qc [N, C, 8, 128] int16.
+
+        Supersteps: one 128-bit window fetch serves 10 symbols (max 12 bits
+        each). VLC tables are closed-form/packed-nibble arithmetic — the
+        scan body performs no gathers beyond the window fetch."""
         N = cur.shape[0]
         res_prog, S = self._res_program(res)
         rb_prog, vb_prog = self._vlc_prog(res_prog)
@@ -666,10 +608,16 @@ class DeviceUnpacker:
 
         def step(cur, xs):
             rbG, vbG = xs
-            cur, vals = self._coef_superstep(
-                fetch, cur, [rbG[j] for j in range(G)],
-                [vbG[j] for j in range(G)])
-            return cur, jnp.stack([v.astype(jnp.int16) for v in vals])
+            ws, base = self._win128(wa, cur)
+            o = cur - base
+            vals = []
+            for j in range(G):
+                value, adv = self._vlc_symbol_fast(ws, o, cur, rbG[j],
+                                                   vbG[j])
+                vals.append(value.astype(jnp.int16))
+                cur = cur + adv
+                o = o + adv
+            return cur, jnp.stack(vals)
 
         subframes = []
         for _s in range(8):
@@ -678,210 +626,15 @@ class DeviceUnpacker:
         per_sub = jnp.stack(subframes, axis=0)           # [8, sum, N]
         return self._route_qc(per_sub, N), cur
 
-    # -- engines -------------------------------------------------------------
-
-    def _unpack_scan(self, dec, wa, ath_i32):
-        """The XLA scan engine. Returns (qc, sf, res, inten, err)."""
-        N = dec.shape[0]
-        fetch = partial(self._wa_words, wa)
-        anl = ((dec[:, 2].astype(jnp.int32) << 1)
-               | (dec[:, 3].astype(jnp.int32) >> 7))
-        evb = dec[:, 3].astype(jnp.int32) & 0x7F
-        packed_noise = (anl << 8) - evb
-        cur = jnp.full((N,), 32, dtype=jnp.int32)
-        err = jnp.zeros((N,), dtype=bool)
-
-        sf_ch, inten_ch = [], []
-        for c in range(self.C):
-            sf_c, cur, err = self._scalefactors_channel(fetch, cur, err, c)
-            inten_c, sf_c, cur, err = self._intensity_channel(
-                fetch, cur, err, c, sf_c)
-            sf_ch.append(sf_c)
-            inten_ch.append(inten_c)
-        sf = jnp.stack(sf_ch, axis=1)          # [N, C, 128]
-        inten = jnp.stack(inten_ch, axis=1)    # [N, C, 8]
-        res = self._resolutions(sf, packed_noise, ath_i32)
-        qc, cur = self._coefficients(fetch, cur, res)
-        return qc, sf, res, inten, err
-
-    def _unpack_triton(self, wa, ath_i32, interpret=False, block=None,
-                       num_warps=None):
-        """The whole unpack as one Pallas kernel lowered through Triton.
-
-        One lane = one frame, `block` frames per program, a 1-D grid over
-        frame blocks. Per lane, in program order: per channel the
-        scalefactor section (a fori_loop over full 10-symbol supersteps,
-        then a statically unrolled tail that holds every v3 extension
-        symbol), each band's resolution as soon as its scalefactor is
-        known, the intensity / v2 HFR section; then for each of the 8
-        subframes every channel's coded bands. Window words are direct
-        indexed loads of the word table. Every output element is written
-        exactly once. Returns (qc, sf, res, inten, err) in the scan
-        engine's layouts, bit-identical to it (shared helpers)."""
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import triton as plt
-
-        N = wa.shape[0]
-        BF = block or triton_block(N)
-        NB = -(-N // BF)
-        Np = NB * BF
-        if Np != N:
-            wa = jnp.pad(wa, ((0, Np - N), (0, 0)))
-        C, G, SG = self.C, self._G, self._SF_G
-        S = sum(self.coded)
-        prog_off = np.concatenate([[0], np.cumsum(self.coded)]).tolist()
-        u8, i32 = jnp.uint8, jnp.int32
-
-        def kernel(wa_ref, ath_ref, qc_ref, sf_ref, res_ref, int_ref,
-                   cur_ref, err_ref):
-            base = pl.program_id(0) * BF
-            rows = base + jnp.arange(BF, dtype=i32)
-            lanes = pl.ds(base, BF)
-
-            def fetch(q, nwords):
-                return [wa_ref[rows, q + k] for k in range(nwords)]
-
-            w0f = wa_ref[rows, jnp.zeros((BF,), i32)]
-            anl = (((w0f >> 8) & 0xFF) << 1 | ((w0f & 0xFF) >> 7)) \
-                .astype(i32)
-            packed_noise = (anl << 8) - (w0f & 0x7F).astype(i32)
-
-            def put_sf_res(c, m, v, coded):
-                sf_ref[c, m, lanes] = v.astype(u8)
-                if isinstance(m, int) and m >= coded:
-                    return
-                res_ref[c, m, lanes] = self._res_of(
-                    v, ath_ref[m], packed_noise, m).astype(u8)
-
-            def zero_fill(ref, c, lo, hi):
-                if hi <= lo:
-                    return
-
-                def body(m, carry):
-                    ref[c, m, lanes] = jnp.zeros((BF,), u8)
-                    return carry
-                jax.lax.fori_loop(lo, hi, body, 0)
-
-            cur = jnp.full((BF,), 32, i32)
-            err = jnp.zeros((BF,), bool)
-            for c in range(C):
-                cs, coded = self.cs_counts[c], self.coded[c]
-                extra = self.extras[c]
-                # bands the v3 extension / v2 HFR section overwrite
-                top = extra or (self.hfr if self.version <= VERSION_V200
-                                and self.ctype[c] != T.STEREO_SECONDARY
-                                else 0)
-                top = max(top, 0)
-                sf0, mode, cur = self._sf_header(fetch, cur)
-                put_sf_res(c, 0, sf0, coded)
-                value = sf0
-                nfull = (min(coded, 128 - top) - 1) // SG
-
-                def sf_body(j, carry, c=c, coded=coded, mode=mode):
-                    cur, value, erri = carry
-                    cur, value, e, outs = self._sf_superstep(
-                        fetch, cur, value, erri != 0, [True] * SG, mode)
-                    for g in range(SG):
-                        put_sf_res(c, 1 + j * SG + g, outs[g], coded)
-                    return cur, value, e.astype(i32)
-
-                cur, value, erri = jax.lax.fori_loop(
-                    0, nfull, sf_body, (cur, value, err.astype(i32)))
-                err = erri != 0
-                vals = {}
-                tail = list(range(1 + nfull * SG, cs))
-                for t0 in range(0, len(tail), SG):
-                    grp = tail[t0:t0 + SG]
-                    cur, value, err, outs = self._sf_superstep(
-                        fetch, cur, value, err, [True] * len(grp), mode)
-                    for m, v in zip(grp, outs):
-                        vals[m] = v
-                        if m < 128 - top:
-                            put_sf_res(c, m, v, coded)
-                zero_fill(sf_ref, c, cs, 128 - top)
-                zero_fill(res_ref, c, coded, 128)
-                for i in range(extra):
-                    # hca.cpp:1352-1355 — i=0 copies sf[cs] (a zero)
-                    v = vals[cs - i] if i else jnp.zeros((BF,), i32)
-                    sf_ref[c, 127 - i, lanes] = v.astype(u8)
-
-                cols, hf, cur, err = self._intensity_section(
-                    fetch, cur, err, c)
-                for i, v in enumerate(hf):
-                    sf_ref[c, 128 - self.hfr + i, lanes] = v.astype(u8)
-                for k in range(8):
-                    v = cols[k] if cols is not None else jnp.zeros((BF,), i32)
-                    int_ref[c, k, lanes] = v.astype(u8)
-
-            if not interpret:
-                # resolutions are re-read below: order this program's
-                # stores before its loads whatever the lane layouts
-                plt.debug_barrier()
-
-            def coef_run(s, c, k0, n, cur):
-                rs = [res_ref[c, k0 + g, lanes].astype(i32) for g in range(n)]
-                tabs = [self._vlc_tables(r) for r in rs]
-                cur, vals = self._coef_superstep(
-                    fetch, cur, [t[0] for t in tabs], [t[1] for t in tabs])
-                for g, v in enumerate(vals):
-                    qc_ref[s, prog_off[c] + k0 + g, lanes] = \
-                        v.astype(jnp.int16)
-                return cur
-
-            def sub_body(s, cur):
-                for c in range(C):
-                    coded = self.coded[c]
-                    nfull = coded // G
-
-                    def co_body(j, cur, s=s, c=c):
-                        return coef_run(s, c, j * G, G, cur)
-
-                    cur = jax.lax.fori_loop(0, nfull, co_body, cur)
-                    if coded % G:
-                        cur = coef_run(s, c, nfull * G, coded % G, cur)
-                return cur
-
-            cur = jax.lax.fori_loop(0, 8, sub_body, cur)
-            cur_ref[lanes] = cur
-            err_ref[lanes] = err.astype(i32)
-
-        qc_p, sf_p, res_p, int_p, cur_p, err_p = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((8, S, Np), jnp.int16),
-                jax.ShapeDtypeStruct((C, 128, Np), u8),
-                jax.ShapeDtypeStruct((C, 128, Np), u8),
-                jax.ShapeDtypeStruct((C, 8, Np), u8),
-                jax.ShapeDtypeStruct((Np,), i32),
-                jax.ShapeDtypeStruct((Np,), i32),
-            ),
-            grid=(NB,),
-            backend="triton",
-            compiler_params=plt.CompilerParams(
-                num_warps=num_warps or max(1, BF // 32), num_stages=1),
-            interpret=interpret,
-            name="hca_unpack",
-        )(wa, ath_i32.astype(i32))
-        qc = self._route_qc(qc_p[:, :, :N], N)
-        sf = sf_p[:, :, :N].transpose(2, 0, 1)
-        res = res_p[:, :, :N].transpose(2, 0, 1)
-        inten = int_p[:, :, :N].transpose(2, 0, 1)
-        return qc, sf, res, inten, err_p[:N] != 0
-
     # -- driver --------------------------------------------------------------
 
-    def _unpack(self, frames_u8, cipher_u8, ath_i32, B=1, engine="scan",
-                interpret=False):
+    def _unpack(self, frames_u8, cipher_u8, ath_i32, B=1):
         """frames_u8: uint8 [N, frame_size] (enciphered, sync+CRC already
         validated host-side); cipher_u8 [256], ath_i32 [128] as DYNAMIC
         inputs so one compiled program serves every key and sample rate of
         a config (only cipher_identity is static: the identity map skips
-        the decipher pass entirely). engine: "scan" (XLA) or "triton" (the
-        Pallas kernel; `interpret` runs it in the Pallas interpreter).
-        Returns (qc, sf, res, inten, err, noise_src, noise_sci, noise_mask).
-        """
-        if engine not in ("scan", "triton"):
-            raise ValueError("engine must be 'scan' or 'triton'")
+        the decipher pass entirely). Returns (qc, sf, res, inten, err,
+        noise_src, noise_sci, noise_mask)."""
         N = frames_u8.shape[0]
         if self.cipher_identity:
             dec = frames_u8
@@ -907,11 +660,24 @@ class DeviceUnpacker:
         le = jax.lax.bitcast_convert_type(b, jnp.uint32)
         wa = ((le << 24) | ((le & jnp.uint32(0xFF00)) << 8)
               | ((le >> 8) & jnp.uint32(0xFF00)) | (le >> 24))
-        if engine == "triton":
-            qc, sf, res, inten, err = self._unpack_triton(
-                wa, ath_i32, interpret=interpret)
-        else:
-            qc, sf, res, inten, err = self._unpack_scan(dec, wa, ath_i32)
+        anl = ((dec[:, 2].astype(jnp.int32) << 1)
+               | (dec[:, 3].astype(jnp.int32) >> 7))
+        evb = dec[:, 3].astype(jnp.int32) & 0x7F
+        packed_noise = (anl << 8) - evb
+        cur = jnp.full((N,), 32, dtype=jnp.int32)
+        err = jnp.zeros((N,), dtype=bool)
+
+        sf_ch, inten_ch = [], []
+        for c in range(self.C):
+            sf_c, cur, err = self._scalefactors_channel(wa, cur, err, c)
+            inten_c, sf_c, cur, err = self._intensity_channel(
+                wa, cur, err, c, sf_c)
+            sf_ch.append(sf_c)
+            inten_ch.append(inten_c)
+        sf = jnp.stack(sf_ch, axis=1)          # [N, C, 128]
+        inten = jnp.stack(inten_ch, axis=1)    # [N, C, 8]
+        res = self._resolutions(sf, packed_noise, ath_i32)
+        qc, cur = self._coefficients(wa, cur, res)
         if self.need_noise:
             nsrc, nsci, nmask = self._noise(sf, res, B)
         else:
@@ -920,23 +686,17 @@ class DeviceUnpacker:
             nmask = jnp.zeros((1,) * 4, bool)
         return qc, sf, res, inten, err, nsrc, nsci, nmask
 
-    def __call__(self, frames_u8, cipher_u8=None, ath_i32=None, B=1,
-                 engine=None, interpret=False):
+    def __call__(self, frames_u8, cipher_u8=None, ath_i32=None, B=1):
         # Defaults come from the info this instance was BUILT with; when the
         # instance came from get_unpacker (cached without cipher/rate), pass
         # cipher/ath explicitly or a different-keyed stream would silently
         # decode with the first caller's tables.
-        from .. import backend
-
         if cipher_u8 is None:
             cipher_u8 = self.cipher
         if ath_i32 is None:
             ath_i32 = self.ath
-        if engine is None:
-            engine = backend.engine("hca", "unpack")
         return self._jit(frames_u8, np.asarray(cipher_u8, np.uint8),
-                         np.asarray(ath_i32, np.int32), B=B, engine=engine,
-                         interpret=interpret)
+                         np.asarray(ath_i32, np.int32), B=B)
 
 
 _unpacker_cache: dict = {}
@@ -944,11 +704,12 @@ _unpacker_cache: dict = {}
 
 def get_unpacker(info) -> DeviceUnpacker:
     """Config-keyed DeviceUnpacker cache: building one traces/compiles the
-    full unpack program, so repeated same-config calls must reuse it. The
-    cipher table and ATH curve are DYNAMIC inputs to the compiled program
-    (pass them to __call__), so the key carries only the identity-cipher
-    flag — one program serves every key and sample rate of a config.
-    Raises ValueError for host-only configs, also cached."""
+    full unpack program (tens of seconds), so repeated
+    same-config calls must reuse it. The cipher table and ATH curve are
+    DYNAMIC inputs to the compiled program (pass them to __call__), so the
+    key carries only the identity-cipher flag — one program serves every
+    key and sample rate of a config. Raises ValueError for host-only
+    configs, also cached."""
     key = (info.channels, info.version, info.frame_size,
            info.min_resolution, info.max_resolution, info.total_band_count,
            info.base_band_count, info.stereo_band_count,
@@ -968,8 +729,7 @@ def get_unpacker(info) -> DeviceUnpacker:
     return hit
 
 
-def unpack_frames_device(info, data: bytes, check_crc: bool = True,
-                         engine=None, interpret=False):
+def unpack_frames_device(info, data: bytes, check_crc: bool = True):
     """Convenience wrapper mirroring hca_frame.unpack_frames for one stream:
     validates sync+CRC host-side, runs the device unpack, raises HcaError on
     any per-frame error flag (host-path parity). Returns UnpackedFrames with
@@ -988,7 +748,7 @@ def unpack_frames_device(info, data: bytes, check_crc: bool = True,
         raise hca_frame.HcaError("Frame checksum mismatch")
     up = get_unpacker(info)
     qc, sf, res, inten, err, nsrc, nsci, nmask = up(
-        frames, info.cipher, info.ath, engine=engine, interpret=interpret)
+        frames, info.cipher, info.ath)
     if bool(np.asarray(err).any()):
         raise hca_frame.HcaError("Unpack error (device)")
     N, C = nframes, info.channels

@@ -1,9 +1,8 @@
 """chip_smoke.py's phases at a tiny size on the CPU.
 
 The phases run with the GPU's engine choices (device decode, device encode
-packing, device AHX decode); only the unpack engine stays the XLA scan, since
-the Triton kernel compiles for the GPU alone. On the card the script runs
-them at full size (`python chip_smoke.py`).
+packing, device AHX decode) injected into the engine table. On the card the
+script runs them at full size (`python chip_smoke.py`).
 """
 import os
 import subprocess

@@ -2,9 +2,8 @@
 reference oracle (/tmp/refbuild, see CLAUDE.md for the build recipe).
 
 150 cases: channels 1-8 x qualities 0-4 x six content kinds, random rates
-and lengths, every fifth case keyed+subkeyed (cipher 56). On a GPU this
-exercises the Triton unpack kernel and the XLA transform; on the CPU the
-XLA scan engine. Byte-compares WAV output per case.
+and lengths, every fifth case keyed+subkeyed (cipher 56), through the
+device unpack and transform. Byte-compares WAV output per case.
 
 Run: timeout 5400 python3 tools/dev_campaign.py | tee /tmp/dev_campaign.log
 """

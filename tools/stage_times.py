@@ -1,20 +1,18 @@
-"""Per-stage device times of the HCA bank decode, and the unpack engines
-compared end to end. Needs a GPU.
+"""Per-stage device times of the HCA bank decode. Needs a GPU.
 
     python tools/stage_times.py [--streams 256] [--reps 5] [--trace DIR]
 
 On the chip_smoke bank (stereo 48 kHz quality 2, keyed), for one 64-stream
 chunk held in device memory it times, with block_until_ready:
 
-- the bitstream unpack by each engine ("triton" kernel, "scan" XLA),
+- the bitstream unpack,
 - the transform (dequant .. overlap-add) on the unpacked tensors,
 - the fused unpack+transform step the pipeline dispatches,
 
-checks that both unpack engines give identical tensors and that the device
-transform gives the host C++ transform's PCM, then times
-parallel.decode_batch over the whole bank with each unpack engine in turns
-(triton, scan, scan, triton). With --trace it also writes a profiler trace
-of one fused step per engine and prints the device time per kernel name.
+checks that the device transform gives the host C++ transform's PCM, then
+times parallel.decode_batch over the whole bank. With --trace it also writes
+a profiler trace of one fused step (after the wall-time runs, since tracing
+slows the host) and prints the device time per kernel name.
 """
 from __future__ import annotations
 
@@ -92,7 +90,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     import chip_smoke
-    from pycricodecs_tpu import backend, parallel
+    from pycricodecs_tpu import parallel
     from pycricodecs_tpu.ops import hca_frame, hca_kernels
     from pycricodecs_tpu.ops import hca_unpack_device
     from pycricodecs_tpu.parallel import pipeline
@@ -135,24 +133,15 @@ def main(argv=None):
 
     up = hca_unpack_device.DeviceUnpacker(info)
     flat = frames_d.reshape(B * F, fs)
-    outs = {}
-    for eng in ("triton", "scan"):
-        t0 = time.perf_counter()
-        outs[eng] = jax.block_until_ready(
-            up._jit(flat, cipher, ath, B=B, engine=eng))
-        print(f"unpack[{eng}]: first call incl. compile "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        ts = _time_device(lambda e=eng: up._jit(flat, cipher, ath, B=B,
-                                                 engine=e), args.reps)
-        print(f"unpack[{eng}]: {_fmt(ts)}", flush=True)
-    for name, a, b in zip("qc sf res inten err".split(), outs["triton"],
-                          outs["scan"]):
-        same = bool(np.array_equal(np.asarray(a), np.asarray(b)))
-        print(f"unpack parity triton vs scan [{name}]: "
-              f"{'identical' if same else 'DIFFERENT'}", flush=True)
-    assert not np.asarray(outs["scan"][4]).any()
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(up._jit(flat, cipher, ath, B=B))
+    print(f"unpack: first call incl. compile {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    ts = _time_device(lambda: up._jit(flat, cipher, ath, B=B), args.reps)
+    print(f"unpack: {_fmt(ts)}", flush=True)
+    assert not np.asarray(out[4]).any()
 
-    qc, sf, res, inten = outs["scan"][:4]
+    qc, sf, res, inten = out[:4]
     cfg = dict(base_band=int(info.base_band_count),
                total_band=int(info.total_band_count), stereo_pairs=pairs,
                apply_noise=False,
@@ -188,46 +177,33 @@ def main(argv=None):
           f"{int((diff > 0).sum())} of {diff.size} samples differ, "
           f"max {int(diff.max())} LSB", flush=True)
 
-    for eng in ("triton", "scan"):
-        step = pipeline._get_fused_device_decode(info, pairs, eng)
+    step = pipeline._get_fused_device_decode(info, pairs)
 
-        def fused(step=step):
-            return step(frames_d, cipher, ath, *hfr_args)
+    def fused():
+        return step(frames_d, cipher, ath, *hfr_args)
 
-        print(f"fused step[{eng}]: {_fmt(_time_device(fused, args.reps))}",
-              flush=True)
-        if args.trace:
-            path = os.path.join(args.trace, eng)
-            with jax.profiler.trace(path):
-                jax.block_until_ready(fused())
-            busy, ranked = trace_summary(path)
-            print(f"trace[{eng}]: device busy {busy * 1e3:.3f} ms; "
-                  f"top kernels:", flush=True)
-            for name, sec in ranked:
-                print(f"    {sec * 1e3:9.3f} ms  {name[:90]}", flush=True)
+    print(f"fused step: {_fmt(_time_device(fused, args.reps))}", flush=True)
 
-    table = backend.ENGINES[("hca", "unpack")]
-    saved = table["gpu"]
-    walls = {"triton": [], "scan": []}
-    try:
-        for eng in ("triton", "scan"):
-            table["gpu"] = eng
-            parallel.decode_batch(blobs, key=key)            # compile
-        for eng in ("triton", "scan", "scan", "triton"):
-            table["gpu"] = eng
-            for _ in range(max(1, args.reps // 2)):
-                st = parallel.DecodeStats()
-                t0 = time.perf_counter()
-                parallel.decode_batch(blobs, key=key, stats=st)
-                walls[eng].append(time.perf_counter() - t0)
-                assert st.device_unpack_streams == len(blobs)
-    finally:
-        table["gpu"] = saved
+    parallel.decode_batch(blobs, key=key)                    # compile
+    walls = []
+    for _ in range(args.reps):
+        st = parallel.DecodeStats()
+        t0 = time.perf_counter()
+        parallel.decode_batch(blobs, key=key, stats=st)
+        walls.append(time.perf_counter() - t0)
+        assert st.device_unpack_streams == len(blobs)
     audio = len(blobs) * chip_smoke.MAIN_SECONDS
-    for eng, ts in walls.items():
-        print(f"decode_batch[{eng}] {len(blobs)} streams: wall {_fmt(ts)} "
-              f"-> {audio / statistics.median(ts):.1f} audio-s/s",
-              flush=True)
+    print(f"decode_batch {len(blobs)} streams: wall {_fmt(walls)} -> "
+          f"{audio / statistics.median(walls):.1f} audio-s/s", flush=True)
+
+    if args.trace:
+        with jax.profiler.trace(args.trace):
+            jax.block_until_ready(fused())
+        busy, ranked = trace_summary(args.trace)
+        print(f"trace: fused step device busy {busy * 1e3:.3f} ms; "
+              f"top kernels:", flush=True)
+        for name, sec in ranked:
+            print(f"    {sec * 1e3:9.3f} ms  {name[:90]}", flush=True)
     return 0
 
 
