@@ -55,8 +55,8 @@ def _so_path() -> str:
 def _build(so: str) -> bool:
     try:
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        # build to a private name, then rename: concurrent builders (test
-        # workers) never load a half-written library
+        # build to a private name, then rename: processes building at the
+        # same time (test workers) never load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         cmd = ["g++", *_FLAGS, _SRC, "-o", tmp, "-lpthread"]
