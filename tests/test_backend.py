@@ -79,3 +79,29 @@ def test_decode_batch_device_failure_raises(monkeypatch):
     monkeypatch.setattr(pipeline, "_decode_group", broken)
     with pytest.raises(RuntimeError, match="device lost"):
         parallel.decode_batch([blob])
+
+
+@pytest.mark.parametrize("env_dir", [None, "some/cache"])
+def test_compile_cache_location(monkeypatch, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set the package sets no cache
+    directory; without it the cache goes to .jax_cache/ in the checkout."""
+    import os
+
+    from pycricodecs_tpu.parallel import pipeline
+
+    calls = []
+    monkeypatch.setattr(pipeline, "_cache_ready", False)
+    monkeypatch.delenv("PYCRICODECS_NO_JAX_CACHE", raising=False)
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(pipeline.jax.config, "update",
+                        lambda name, value: calls.append((name, value)))
+    pipeline._ensure_compile_cache()
+    if env_dir:
+        assert calls == []
+    else:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert pipeline.CACHE_DIR == os.path.join(root, ".jax_cache")
+        assert ("jax_compilation_cache_dir", pipeline.CACHE_DIR) in calls
